@@ -1,0 +1,23 @@
+"""Per-scenario selection over the port's state dataclasses."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def where(mask: torch.Tensor, a, b):
+    """Field-wise `torch.where(mask, a, b)` over two dataclasses of the same
+    type (nested dataclasses included). mask is [B] bool; every tensor
+    field has the leading scenario axis. Non-tensor fields come from `a`.
+    This is what `lax.cond` or a tree-mapped `jnp.where` does under
+    `jax.vmap` in the JAX package."""
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: where(mask, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)})
+    if isinstance(a, torch.Tensor):
+        m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
+        return torch.where(m, a, b)
+    return a
