@@ -4,8 +4,9 @@ One MPC instance per scenario: `MpcState` tensors carry the leading
 scenario axis. A solve builds the SRB model at the current attitude, the
 exact ZOH, the condensed cost and the friction-cone QP, and runs
 `cone_qp.solve`, whose ADMM loop is the `fused_admm` CUDA kernel on the
-card. Not ported yet: move blocking (`move_block`, `long_horizon_config`)
-and the flip-aware warm-start shift (`qp_warm_shift`); both raise.
+card. With `move_block` the tail horizon steps share force variables
+(`long_horizon_config`: H=16 at the condensed size of H=10), and the warm
+state lives in the reduced space.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ class MpcConfig:
     qp_cold_alpha: float = 1.6
     qp_rho: float | None = None
     qp_warm_shift: bool = False
+    # Move blocking (head, block): `head` individual steps, then groups of
+    # `block` sharing one force triple per leg. () disables.
     move_block: tuple = ()
     state_weights: tuple = (10, 10, 5, 40, 60, 100, 0, 0, 0.5, 5, 5, 1, 0.0)
     force_weight: float = 4e-6
@@ -52,12 +55,6 @@ class MpcConfig:
     solve_mode: str = "cadence"
     boot_solve_ticks: int = 0
 
-    def __post_init__(self):
-        if self.move_block:
-            raise NotImplementedError("move blocking is not ported")
-        if self.qp_warm_shift:
-            raise NotImplementedError("qp_warm_shift is not ported")
-
     @property
     def ticks_per_solve(self) -> int:
         period_s = (self.iterations_per_mpc / 2) * 0.001
@@ -65,7 +62,19 @@ class MpcConfig:
 
     @property
     def n_force_groups(self) -> int:
-        return self.horizon
+        if not self.move_block:
+            return self.horizon
+        return condense.move_block_groups(self.horizon, *self.move_block)[1]
+
+
+def long_horizon_config(**overrides) -> MpcConfig:
+    """The tuned H=16 configuration of the JAX package: move blocking
+    (4, 2) (4 single steps + 6 tail pairs = 10 groups, n = 120 as at H=10)
+    and force_weight 1e-4 (the H=16 regularizer); everything else at
+    MpcConfig defaults."""
+    kw = dict(horizon=16, move_block=(4, 2), force_weight=1e-4)
+    kw.update(overrides)
+    return MpcConfig(**kw)
 
 
 @dataclasses.dataclass
@@ -224,6 +233,10 @@ def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
         a_ct, bd, ad, x0, x_des, weights, config.force_weight, h,
         config.dt_mpc)
     fz_hi = (contact_table * params.max_force).reshape(b, h * 4)
+    if config.move_block:
+        groups, n_g = condense.move_block_groups(h, *config.move_block)
+        p_cost, q_cost, fz_hi = condense.reduce_move_blocking(
+            p_cost, q_cost, fz_hi, groups, n_g, h)
     prob = cone_qp.ConeQP(p=p_cost, q=q_cost,
                           mu=params.friction_coef.expand(b),
                           fz_lo=torch.zeros_like(fz_hi), fz_hi=fz_hi)
@@ -231,14 +244,19 @@ def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
     if config.qp_rho is not None and x0_warm is None:
         rho = config.qp_rho
     pin_new = (fz_hi < 1e-6).float()
+    x0 = state.warm_primal if x0_warm is None else x0_warm
+    y0 = state.warm_dual if y0_warm is None else y0_warm
+    if config.qp_warm_shift and not config.move_block and x0_warm is None:
+        # Flip-aware warm start on the per-tick path (the cold boot passes
+        # its own gravity-split start).
+        x0, y0 = cone_qp.shift_warm_start(x0, y0, state.warm_pinned, pin_new)
     sol = cone_qp.solve(
         prob, iters=config.qp_iters if iters is None else iters, rho=rho,
-        x0=state.warm_primal if x0_warm is None else x0_warm,
-        y0=state.warm_dual if y0_warm is None else y0_warm,
-        alpha=config.qp_alpha if alpha is None else alpha,
+        x0=x0, y0=y0, alpha=config.qp_alpha if alpha is None else alpha,
         accel_restart=(config.qp_accel_restart if accel_restart is None
                        else accel_restart))
-    forces = sol.x[:, :12].reshape(b, 4, 3)  # first step, world frame
+    # First-step forces, world frame: the first step is its own group.
+    forces = sol.x[:, :12].reshape(b, 4, 3)
     return dataclasses.replace(state, forces_world=forces,
                                warm_primal=sol.x, warm_dual=sol.y,
                                warm_pinned=pin_new)
@@ -267,9 +285,17 @@ def mpc_cold_start(config: MpcConfig, params: RobotParams,
     rpy_comp = torch.zeros(body_height.shape[0], 2, dtype=torch.float32,
                            device=body_height.device)
     table, _ = _contact_table(config, gait_config, gait_state)
+    grav_table = table
+    if config.move_block:
+        # The warm state lives in the blocked space: split gravity over the
+        # per-group contact table, the minimum over the steps each group
+        # covers (as reduce_move_blocking bounds fz).
+        grav_table = condense.group_min(
+            table, *condense.move_block_groups(config.horizon,
+                                               *config.move_block))
     return mpc_solve(config, params, state, obs, des, table, rpy_comp,
                      body_height, iters=config.qp_cold_iters,
-                     x0_warm=gravity_warm_start(params, table),
+                     x0_warm=gravity_warm_start(params, grav_table),
                      y0_warm=torch.zeros_like(state.warm_dual),
                      alpha=config.qp_cold_alpha, accel_restart=0)
 

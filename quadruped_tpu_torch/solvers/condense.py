@@ -1,11 +1,12 @@
 """Horizon condensation of the MPC cost (port of quadruped_tpu/solvers/condense.py).
 
-Only `condense_cost_structured` is on the advanced-trot path at the
-production configuration (no move blocking). It folds the horizon into
+`condense_cost_structured` folds the horizon into
 P = 2 (Bqp^T L Bqp + alpha I), q = 2 Bqp^T L (Aqp x0 - Xd) through the SRB
 nilpotency: the Toeplitz blocks are linear in the step offset, so P
 collapses to four 12x12 matrices combined with static [H, H] coefficient
-tables.
+tables. Move blocking (`move_block_groups`, `reduce_move_blocking`,
+`expand_move_blocking`) shares force variables across tail horizon steps,
+the long-horizon configuration's way to keep n = 12 G small.
 """
 
 from __future__ import annotations
@@ -78,3 +79,65 @@ def condense_cost_structured(a_ct, bd, ad, x0, x_des, state_weights,
     qc = torch.einsum("...ji,...hj->...hi", c_mat, s1)
     qvec = 2.0 * (qb + qc).reshape(batch + (horizon * NU,))
     return p, qvec
+
+
+# ---------------------------------------------------------------------------
+# Move blocking: share force variables across tail horizon steps.
+# ---------------------------------------------------------------------------
+
+def move_block_groups(horizon: int, head: int, block: int):
+    """Static step -> group map: `head` individual steps, then groups of
+    `block` (the last one possibly shorter). Returns (groups [H] numpy
+    int array, n_groups)."""
+    groups = []
+    g = 0
+    k = 0
+    while k < horizon:
+        n = 1 if k < head else min(block, horizon - k)
+        groups.extend([g] * n)
+        g += 1
+        k += n
+    return np.asarray(groups), g
+
+
+def _expansion(groups: np.ndarray, n_groups: int, like: torch.Tensor):
+    """[H, G] one-hot step -> group map E."""
+    return torch.as_tensor(np.eye(n_groups, dtype=np.float32)[groups],
+                           dtype=like.dtype, device=like.device)
+
+
+def reduce_move_blocking(p: torch.Tensor, q: torch.Tensor,
+                         fz_hi: torch.Tensor, groups: np.ndarray,
+                         n_groups: int, horizon: int):
+    """(P [B, 12H, 12H], q [B, 12H], fz_hi [B, 4H]) of the full condensed QP
+    -> the blocked QP ([B, 12G, 12G], [B, 12G], [B, 4G]).
+
+    With U = E u (E the per-step one-hot expansion), P_r = E^T P E and
+    q_r = E^T q, as [H, G] contractions over the step axes. A shared triple
+    takes the MIN fz_hi over its group's steps: feasible for every covered
+    step (a group straddling a contact flip pins its force)."""
+    b = p.shape[0]
+    e = _expansion(groups, n_groups, p)
+    p4 = p.reshape(b, horizon, NU, horizon, NU)
+    p_r = torch.einsum("hg,bhiwj,wk->bgikj", e, p4, e) \
+        .reshape(b, NU * n_groups, NU * n_groups)
+    q_r = torch.einsum("hg,bhi->bgi", e, q.reshape(b, horizon, NU)) \
+        .reshape(b, NU * n_groups)
+    fz_r = group_min(fz_hi.reshape(b, horizon, 4), groups, n_groups)
+    return p_r, q_r, fz_r.reshape(b, 4 * n_groups)
+
+
+def group_min(v: torch.Tensor, groups: np.ndarray,
+              n_groups: int) -> torch.Tensor:
+    """Per-step values [B, H, k] -> per-group [B, G, k]: the minimum over
+    the steps each group covers."""
+    covers = _expansion(groups, n_groups, v).T[:, :, None] > 0.5  # [G, H, 1]
+    return torch.amin(torch.where(covers, v[:, None], torch.inf), dim=2)
+
+
+def expand_move_blocking(u_r: torch.Tensor, groups: np.ndarray,
+                         horizon: int) -> torch.Tensor:
+    """Reduced solution [B, 12G] -> full [B, 12H] (U = E u)."""
+    b = u_r.shape[0]
+    idx = torch.as_tensor(groups, device=u_r.device)
+    return u_r.reshape(b, -1, NU)[:, idx].reshape(b, NU * horizon)

@@ -6,7 +6,9 @@ M = gamma d P d + sigma I + blockdiag(A^T rho A), a mixed-precision
 Newton-Schulz inverse of M (plain `torch.matmul`, as the JAX package leaves
 it to XLA outside any kernel), then the ADMM loop. The loop is the
 `fused_admm` kernel (solvers/fused_admm.py): the JAX package's `solve` and
-`solve_fused` compute the same thing, so the port has one function.
+`solve_fused` compute the same thing, so the port has one function, the
+closed loop's solver. `solve_fused_full` hands M itself to the
+`fused_full_solve` kernel, which inverts it and runs the loop on chip.
 
 Batch-first: `ConeQP.p` is [B, n, n] with n = 3T, `mu` is [B].
 """
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from quadruped_tpu_torch.solvers.fused_admm import fused_admm
+from quadruped_tpu_torch.solvers.fused_full_solve import fused_full_solve
 
 SIGMA = 1e-6
 ALPHA = 1.6
@@ -49,7 +52,7 @@ class ConeSolution:
 class AdmmInputs(NamedTuple):
     """The scaled problem as the ADMM kernel takes it, plus the scales."""
 
-    m_inv: torch.Tensor   # [B, n, n]
+    m_inv: torch.Tensor   # [B, n, n] (None from `admm_operands`)
     q: torch.Tensor       # [B, n]
     mu: torch.Tensor      # [B]
     lo: torch.Tensor      # [B, 5T]
@@ -134,12 +137,11 @@ def _equilibrate_scales(prob: ConeQP):
     return q_s, d, d_t, gamma, prob.fz_lo / d_t, prob.fz_hi / d_t
 
 
-def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
-                x0: torch.Tensor | None = None,
-                y0: torch.Tensor | None = None, ns_iters: int = NS_ITERS,
-                ns_f32_polish: int = 1) -> AdmmInputs:
-    """Equilibrate, build M and its Newton-Schulz inverse, and lay the
-    problem out as the ADMM kernel takes it (warm start scaled in)."""
+def admm_operands(prob: ConeQP, rho: float, sigma: float,
+                  x0: torch.Tensor | None, y0: torch.Tensor | None):
+    """Equilibrate, build M = gamma d P d + sigma I + blockdiag(A^T rho A)
+    and lay the problem out as the ADMM kernels take it (warm start scaled
+    in). Returns (M [B, n, n], AdmmInputs with m_inv None)."""
     b, n, _ = prob.p.shape
     t = n // 3
     dtype, device = prob.p.dtype, prob.p.device
@@ -159,7 +161,6 @@ def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
     scale = gamma[:, None, None] * d[:, :, None] * d[:, None, :]
     m_mat = scale * prob.p + sigma * torch.eye(n, dtype=dtype, device=device) \
         + torch.einsum("btij,tu->btiuj", ata, eye_t).reshape(b, n, n)
-    m_inv = newton_schulz_inverse(m_mat, ns_iters, ns_f32_polish)
 
     zeros4 = torch.zeros(b, t, 4, dtype=dtype, device=device)
     lo = torch.cat([zeros4, fz_lo[..., None]], dim=-1).reshape(b, 5 * t)
@@ -167,9 +168,84 @@ def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
     x_init = torch.zeros_like(q_s) if x0 is None else x0 / d
     y_init = (torch.zeros(b, 5 * t, dtype=dtype, device=device) if y0 is None
               else (y0 * gamma[:, None, None]).reshape(b, 5 * t))
-    return AdmmInputs(m_inv=m_inv, q=q_s, mu=mu, lo=lo, hi=hi,
-                      rho=rho_rows.reshape(b, 5 * t).contiguous(),
-                      x0=x_init, y0=y_init, d=d, gamma=gamma)
+    return m_mat, AdmmInputs(m_inv=None, q=q_s, mu=mu, lo=lo, hi=hi,
+                             rho=rho_rows.reshape(b, 5 * t).contiguous(),
+                             x0=x_init, y0=y_init, d=d, gamma=gamma)
+
+
+def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
+                x0: torch.Tensor | None = None,
+                y0: torch.Tensor | None = None, ns_iters: int = NS_ITERS,
+                ns_f32_polish: int = 1) -> AdmmInputs:
+    """Equilibrate, build M and its Newton-Schulz inverse, and lay the
+    problem out as the ADMM kernel takes it (warm start scaled in)."""
+    m_mat, inp = admm_operands(prob, rho, sigma, x0, y0)
+    return inp._replace(
+        m_inv=newton_schulz_inverse(m_mat, ns_iters, ns_f32_polish))
+
+
+def _unscale(prob: ConeQP, inp: AdmmInputs, x_s: torch.Tensor,
+             y_s: torch.Tensor) -> ConeSolution:
+    """Scaled iterates -> solution in the problem's units, with the primal
+    residual of the unscaled cone constraints."""
+    b, n = x_s.shape
+    t = n // 3
+    x_out = x_s * inp.d
+    y_out = y_s.reshape(b, t, 5) / inp.gamma[:, None, None]
+    ax = torch.einsum("bri,bti->btr", cone_pattern(inp.mu),
+                      x_out.reshape(b, t, 3))
+    ax_proj = _project(ax, prob.fz_lo, prob.fz_hi)
+    prim = torch.amax(torch.abs(ax - ax_proj), dim=(-2, -1))
+    return ConeSolution(x=x_out, y=y_out, prim_res=prim)
+
+
+def shift_warm_start(x: torch.Tensor, y: torch.Tensor,
+                     pin_prev: torch.Tensor, pin_new: torch.Tensor,
+                     n_legs: int = 4):
+    """Flip-aware warm start: per scenario, the previous solution shifted
+    one horizon step forward (tail duplicated) when the contact table
+    advanced between cadence solves, else the solution in place.
+
+    The shifted start is taken when at least one full leg set flipped
+    (n_flip >= n_legs) and the new pin pattern matches the shifted previous
+    one strictly better. Only meaningful for unblocked horizons.
+    x: [B, 12H], y: [B, 4H, 5], pin_*: [B, 4H]; returns (x0, y0).
+    """
+    b = x.shape[0]
+    h = pin_prev.shape[-1] // n_legs
+
+    def shift(v, steps_shape):
+        s = v.reshape((b, h) + steps_shape)
+        return torch.cat([s[:, 1:], s[:, -1:]], dim=1).reshape(v.shape)
+
+    x_shift = shift(x, (3 * n_legs,))
+    y_shift = shift(y, (n_legs, y.shape[-1]))
+    pin_sh = shift(pin_prev, (n_legs,))
+    n_flip = torch.sum(pin_new != pin_prev, dim=-1)
+    n_flip_sh = torch.sum(pin_new != pin_sh, dim=-1)
+    use = (n_flip >= n_legs) & (n_flip_sh < n_flip)
+    return (torch.where(use[:, None], x_shift, x),
+            torch.where(use[:, None, None], y_shift, y))
+
+
+def solve_fused_full(prob: ConeQP, *, iters: int = 40, rho: float = RHO_CONE,
+                     sigma: float = SIGMA, alpha: float = ALPHA,
+                     x0: torch.Tensor | None = None,
+                     y0: torch.Tensor | None = None,
+                     ns_iters: int = NS_ITERS, ns_f32_polish: int = 1,
+                     accel_restart: int = 0) -> ConeSolution:
+    """`solve` with the Newton-Schulz inverse and the ADMM loop in one
+    kernel (solvers/fused_full_solve.py): the equilibration, M and the
+    per-row rho are `solve`'s, M goes to the kernel uninverted. The
+    kernel's inverse follows the Pallas kernel's rounding schedule
+    (`fused_full_solve.newton_schulz_reference`). Raises ValueError when n
+    is too large for one block's shared memory (n > 132)."""
+    m_mat, inp = admm_operands(prob, rho, sigma, x0, y0)
+    x_s, y_s = fused_full_solve(
+        m_mat, inp.q, inp.mu, inp.lo, inp.hi, inp.rho, inp.x0, inp.y0,
+        ns_iters=ns_iters, ns_f32_polish=ns_f32_polish, iters=iters,
+        sigma=sigma, alpha=alpha, accel_restart=accel_restart)
+    return _unscale(prob, inp, x_s, y_s)
 
 
 def solve(prob: ConeQP, *, iters: int = 40, rho: float = RHO_CONE,
@@ -188,17 +264,9 @@ def solve(prob: ConeQP, *, iters: int = 40, rho: float = RHO_CONE,
     if bf16_iters > 0 or inv_carry is not None or return_inv_carry:
         raise NotImplementedError(
             "bf16_iters, inv_carry and return_inv_carry are not ported")
-    b, n, _ = prob.p.shape
-    t = n // 3
     inp = admm_inputs(prob, rho=rho, sigma=sigma, x0=x0, y0=y0,
                       ns_iters=ns_iters, ns_f32_polish=ns_f32_polish)
     x_s, y_s = fused_admm(inp.m_inv, inp.q, inp.mu, inp.lo, inp.hi, inp.rho,
                           inp.x0, inp.y0, iters=iters, sigma=sigma,
                           alpha=alpha, accel_restart=accel_restart)
-    x_out = x_s * inp.d
-    y_out = y_s.reshape(b, t, 5) / inp.gamma[:, None, None]
-    ax = torch.einsum("bri,bti->btr", cone_pattern(inp.mu),
-                      x_out.reshape(b, t, 3))
-    ax_proj = _project(ax, prob.fz_lo, prob.fz_hi)
-    prim = torch.amax(torch.abs(ax - ax_proj), dim=(-2, -1))
-    return ConeSolution(x=x_out, y=y_out, prim_res=prim)
+    return _unscale(prob, inp, x_s, y_s)

@@ -26,9 +26,9 @@ import torch
 
 from quadruped_tpu_torch.utils import cuda_build
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_admm.cu"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_admm.cu"
 # Shared memory a block may use on Hopper (bytes).
-_MAX_SMEM = 232448
+MAX_SMEM = 232448
 
 
 def _apply_a(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -94,35 +94,40 @@ def fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
 def _library():
     import ctypes
 
-    path, log = cuda_build.build_shared_library(_SOURCE, "fused_admm")
+    path, _ = cuda_build.build_shared_library(SOURCE, "fused_admm")
     lib = ctypes.CDLL(str(path))
     lib.fused_admm_launch.argtypes = (
         [ctypes.c_void_p] * 10
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
            ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_admm_launch.restype = ctypes.c_int
-    return lib, log
+    return lib
 
 
-def build() -> str:
-    """Build (or find) the kernel library; returns nvcc's log."""
-    return _library()[1]
+
+def vector_floats(n: int) -> int:
+    """Floats of the per-problem vectors in shared memory (four n-vectors,
+    eight m-vectors; admm_loop.cuh)."""
+    return 4 * n + 8 * (n // 3) * 5
 
 
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory one block takes for n variables."""
-    m = (n // 3) * 5
-    return (n * n + 4 * n + 8 * m) * 4
+    return (n * n + vector_floats(n)) * 4
 
 
-def _check(m_inv, q, mu, lo, hi, rho, x0, y0):
+def check_operands(mat, q, mu, lo, hi, rho, x0, y0, mat_name="m_inv"):
+    """Raise on operands the ADMM kernels do not take: shapes [B, n, n],
+    [B, n], [B], [B, m] x3, [B, n], [B, m] (n = 3T, m = 5T), all float32 on
+    one device."""
     b, n = q.shape
     m = (n // 3) * 5
     if n % 3:
         raise ValueError(f"n = {n} is not a whole number of force triples")
-    shapes = {"m_inv": (b, n, n), "q": (b, n), "mu": (b,), "lo": (b, m),
+    shapes = {mat_name: (b, n, n), "q": (b, n), "mu": (b,), "lo": (b, m),
               "hi": (b, m), "rho": (b, m), "x0": (b, n), "y0": (b, m)}
-    args = dict(m_inv=m_inv, q=q, mu=mu, lo=lo, hi=hi, rho=rho, x0=x0, y0=y0)
+    args = {mat_name: mat, "q": q, "mu": mu, "lo": lo, "hi": hi, "rho": rho,
+            "x0": x0, "y0": y0}
     for name, t in args.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
@@ -140,7 +145,7 @@ def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
     m_inv [B, n, n], q [B, n], mu [B], lo/hi/rho [B, m], x0 [B, n],
     y0 [B, m], all float32 on one device (n = 3T, m = 5T).
     """
-    _check(m_inv, q, mu, lo, hi, rho, x0, y0)
+    check_operands(m_inv, q, mu, lo, hi, rho, x0, y0)
     kw = dict(iters=iters, sigma=sigma, alpha=alpha,
               accel_restart=accel_restart)
     if q.device.type == "cpu":
@@ -148,10 +153,10 @@ def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
     if q.device.type != "cuda":
         raise ValueError(f"fused_admm: no kernel for device {q.device}")
     b, n = q.shape
-    if smem_bytes(n) > _MAX_SMEM:
+    if smem_bytes(n) > MAX_SMEM:
         raise ValueError(f"n = {n} needs {smem_bytes(n)} B of shared memory"
-                         f" per block, more than {_MAX_SMEM}")
-    lib, _ = _library()
+                         f" per block, more than {MAX_SMEM}")
+    lib = _library()
     args = [t.contiguous() for t in (m_inv, q, mu, lo, hi, rho, x0, y0)]
     x = torch.empty_like(args[6])
     y = torch.empty_like(args[7])

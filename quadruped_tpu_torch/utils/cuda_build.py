@@ -1,10 +1,11 @@
-"""Build a CUDA source of this package into a plain-C shared library with nvcc.
+"""Build CUDA sources of this package into plain-C shared libraries with nvcc.
 
-The library goes to `quadruped_tpu_torch/_build/` (listed in .gitignore),
-named by a hash of the source and flags, so a changed source builds anew
-and an unchanged one is built once per checkout. Nothing here runs at
-import time; the kernel wrappers call `build_shared_library` at their first
-launch.
+A library goes to `quadruped_tpu_torch/_build/` (listed in .gitignore),
+named by a hash of its source, the headers beside it and the flags, so a
+changed source or header builds anew and an unchanged one is built once per
+checkout. Nothing here runs at import time; the kernel wrappers call
+`build_shared_library` at their first launch, and `build_shared_libraries`
+starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -32,23 +33,51 @@ def nvcc_path() -> str:
     return str(candidate)
 
 
-def build_shared_library(source: Path, name: str) -> tuple[Path, str]:
-    """Compile `source` for sm_90a; returns (library path, compiler log).
+def _library_path(source: Path, name: str) -> Path:
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
-    The log holds ptxas's register and shared-memory report; it is empty
-    when the library was already built.
+
+def build_shared_libraries(
+        specs: list[tuple[Path, str]]) -> list[tuple[Path, str]]:
+    """Compile each (source, name) for sm_90a, all nvcc processes at once;
+    returns [(library path, compiler log)] in the order given.
+
+    A log holds ptxas's register and shared-memory report; it is empty when
+    the library was already built.
     """
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.exists():
-        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{source.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    jobs = []
+    for source, name in specs:
+        out = _library_path(source, name)
+        if out.exists():
+            jobs.append((source, out, None, None))
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((source, out, tmp, proc))
+    results, failed = [], []
+    for source, out, tmp, proc in jobs:
+        if proc is None:
+            results.append((out, ""))
+            continue
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{source.name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        results.append((out, log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
+
+
+def build_shared_library(source: Path, name: str) -> tuple[Path, str]:
+    """Compile one source; see `build_shared_libraries`."""
+    return build_shared_libraries([(source, name)])[0]
