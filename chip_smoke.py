@@ -6,11 +6,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   0. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions; TF32 off for every float32 product;
   1. build: the three kernels of quadruped_tpu_torch/csrc, one nvcc each,
-     all started together;
+     all started together; each kernel's registers, spills and ptxas
+     performance notes (-Xptxas -v), and its dynamic shared memory;
   2. fused_admm vs plain: the ADMM-loop kernel against its plain torch
      version on B=2048 H=10 MPC problems (the JAX solver benchmark's state
      and trot-table distribution), in the 400-iteration relaxed boot scheme
-     and the 24-iteration warm Fast-ADMM scheme, with times of both;
+     and the 24-iteration warm Fast-ADMM scheme, with times of both, the
+     kernel's achieved GB/s and its share of its bound;
   3. the closed loop: `rollout_cadenced` for B=2048 A1 scenarios at the
      production MPC configuration, 18 MPC periods, commands
      vx ~ U(0.2, 0.8), wz ~ N(0, 0.2); fused_admm must be launched once per
@@ -21,7 +23,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   5. fused_full_solve vs plain: the Newton-Schulz + ADMM kernel against its
      plain version at B=2048, n=120, H=10 and H=16 (move blocking (4, 2)),
      in both schemes: unscaled forces, the inverse's residual max|I - MX|,
-     times of both;
+     times of both, the inverse stage alone (a launch with iters=0), the
+     achieved TFLOP/s of that stage and the kernel's share of its bound;
   6. unrolled_dots vs plain: the chained-product kernel against its plain
      version, bf16 and float32, B=1024, 10 products, then the benchmark
      `mxu_rate.measure` through it;
@@ -29,11 +32,15 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      H=16 through the routes `loop` (fused_admm) and `full`
      (fused_full_solve): one kernel launch per update, the route's kernel
      against its plain version on the operands of that update (the limits
-     of phases 2 and 5), solves/s, and the first-step forces of the two
-     routes within 3% m*g of each other.
-The last two lines are a JSON object describing the kernels and the
-device JSON object. There is no CPU path: without a CUDA device the script
-fails before printing a result.
+     of phases 2 and 5), the kernel's time, rate and share of its bound
+     (K2 also its inverse stage alone, beside `torch.linalg.inv` on the same
+     M as a yardstick the port never calls), solves/s, and the first-step
+     forces of the two routes within 3% m*g of each other.
+The last two lines are a JSON object describing the kernels (with each
+kernel's bound: the larger of the bytes it must move over the memory rate
+and its operations over the peak rate of their type) and the device JSON
+object. There is no CPU path: without a CUDA device the script fails
+before printing a result.
 """
 
 from __future__ import annotations
@@ -60,11 +67,14 @@ FIXTURE_TOL = {"position": 2e-4, "base_height_trace": 2e-4, "quat": 5e-4,
                "vel_world": 5e-3, "vel_trace": 5e-3, "omega_world": 3e-2,
                "q": 2e-3, "dq": 5e-2, "foot_anchor": 1e-5}
 MG = 13.0 * 9.81
-# fused_full_solve vs plain: the two sum the bf16 products of the
-# Newton-Schulz steps in other orders, so a rounding tie may fall
-# differently. Unscaled forces within 0.5 N (0.4% m*g); the inverse's
-# residual max|I - MX| below 5e-3 for both (one float32 polish step leaves
-# ~1e-3 on the hardest of 2048 problems) and within 1e-4 of each other.
+# fused_full_solve vs plain: on the card both run the bf16 steps as bf16
+# tensor-core products with float32 accumulation (the plain version through
+# torch.bmm), which agree bit for bit where the two sum in the same order;
+# the 3-pass polish sums its three products in one accumulator in the kernel
+# and in three in the plain version, and the ADMM loop sums in other orders.
+# Unscaled forces within 0.5 N (0.4% m*g); the inverse's residual
+# max|I - MX| below 5e-3 for both (one polish step leaves ~1e-3 on the
+# hardest of 2048 problems) and within 1e-4 of each other.
 FULL_FORCE_ATOL, FULL_RESIDUAL, FULL_RESIDUAL_GAP = 0.5, 5e-3, 1e-4
 # unrolled_dots vs plain: after normalisation the entries are <= 1; the
 # same exact float32 products summed in another order, 10 times chained.
@@ -74,6 +84,37 @@ FULL_FORCE_ATOL, FULL_RESIDUAL, FULL_RESIDUAL_GAP = 0.5, 5e-3, 1e-4
 # would differ by ~2e-3 and fail.
 DOTS_ATOL = {"bf16": 1e-2, "f32": 1e-5}
 BENCH_BATCH = 8192
+# Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
+# and operations/s by type (bf16 on the tensor cores, float32 off them).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(bytes_moved: float, ops: dict) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of bytes over the memory rate and the sum of operations over
+    the peak rate of their type."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = sum(count / PEAK_OPS_PER_S[kind] for kind, count in ops.items())
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def admm_work(batch: int, n: int, iters: int) -> tuple[float, dict]:
+    """(bytes, ops) of one ADMM kernel launch on B problems of n variables:
+    the n x n matrix, q, mu, lo, hi, rho, x0, y0 read once, x and y written
+    once (float32); per iteration the mat-vec (2 n^2), A x and A^T w (4 m)
+    and the z, y and x updates (12 m + 4 n)."""
+    m = 5 * n // 3
+    floats = n * n + 3 * n + 1 + 5 * m
+    ops = iters * (2 * n * n + 16 * m + 4 * n)
+    return 4.0 * batch * floats, {"f32": float(batch * ops)}
+
+
+def newton_schulz_ops(batch: int, n: int, ns_bf16: int, ns_f32: int) -> dict:
+    """bf16 tensor-core operations of the inverse: two n x n products a
+    step, one pass each in the bf16 steps and three in the 3-pass polish."""
+    return {"bf16": float(batch * (2 * ns_bf16 + 6 * ns_f32) * 2 * n ** 3)}
 
 
 def phase(name: str, **values):
@@ -150,10 +191,43 @@ def main() -> int:
             raise RuntimeError(
                 f"fused_full_solve vs plain ({where}): residuals "
                 f"{res_k:.3g} / {res_p:.3g}, forces {dforce}")
+        # The bf16 steps alone (no polish): the kernel's tensor-core
+        # products against the plain version's, expected equal bit for bit.
+        steps = dict(kw, ns_iters=kw["ns_iters"] - kw["ns_f32_polish"],
+                     ns_f32_polish=0, iters=0)
+        _, _, ib = fused_full_solve.fused_full_solve(*ops, **steps,
+                                                     return_inverse=True)
+        ib_plain = fused_full_solve.newton_schulz_reference(
+            ops[0], steps["ns_iters"], 0)
         return dict(max_abs_dforce_N=dforce,
+                    bf16_steps_max_abs_dX=(ib - ib_plain).abs().max().item(),
                     max_abs_dx_scaled=(xk - xr).abs().max().item(),
                     max_abs_dy=(yk - yr).abs().max().item(),
                     residual_kernel=res_k, residual_plain=res_p)
+
+    def full_rates(ops, kw, ms: float) -> dict:
+        """K2's inverse stage alone (a launch with iters=0): its time and
+        achieved TFLOP/s, and the launch with no Newton-Schulz step (load of
+        M, X_0, the loop's set-up) and with the bf16 steps only; the whole
+        kernel's bound and share of it."""
+        batch, n = ops[1].shape
+
+        def stage_ms(**over) -> float:
+            return card.time_ms(lambda: fused_full_solve.fused_full_solve(
+                *ops, **dict(kw, iters=0, **over)), 10)
+
+        inv_ms = stage_ms()
+        load_ms = stage_ms(ns_iters=0, ns_f32_polish=0)
+        bf16_ms = stage_ms(ns_iters=kw["ns_iters"] - kw["ns_f32_polish"],
+                           ns_f32_polish=0)
+        ns = newton_schulz_ops(batch, n, kw["ns_iters"] - kw["ns_f32_polish"],
+                               kw["ns_f32_polish"])
+        nbytes, ops_admm = admm_work(batch, n, kw["iters"])
+        b_ms, b_by = bound(nbytes, dict(ns, **ops_admm))
+        return dict(inverse_ms=inv_ms, load_only_ms=load_ms,
+                    bf16_steps_ms=bf16_ms,
+                    inverse_tflops=ns["bf16"] / inv_ms / 1e9,
+                    bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms)
 
     full_tol = (f"forces {FULL_FORCE_ATOL} N, residual < {FULL_RESIDUAL}, "
                 f"gap <= {FULL_RESIDUAL_GAP}")
@@ -177,10 +251,17 @@ def main() -> int:
     built = cuda_build.build_shared_libraries(
         [(src, name) for name, src in sources.items()])
     seconds = time.perf_counter() - t0
+    # Dynamic shared memory a block takes (K3: two 128 x 129 float32
+    # matrices).
+    dyn_smem = {"fused_admm": 4 * fused_admm.VECTOR_FLOATS,
+                "fused_full_solve": fused_full_solve.SMEM_BYTES,
+                "unrolled_dots": 2 * 128 * 129 * 4}
     for name, (_, log) in zip(sources, built):
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+        ptxas = [ln.split("ptxas info    :")[-1].strip()
+                 for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "C7511" in ln]
         phase(f"build:{name}", seconds=f"{seconds:.3f}",
+              dynamic_smem_bytes=dyn_smem[name],
               ptxas=json.dumps(" | ".join(ptxas)))
 
     # 2. Kernel vs plain on B=2048 production-shaped problems.
@@ -203,11 +284,14 @@ def main() -> int:
         ms = card.time_ms(lambda: fused_admm.fused_admm(*args, **kw), 20)
         plain_ms = card.time_ms(
             lambda: fused_admm.fused_admm_reference(*args, **kw), 3)
-        timing[name] = (ms, plain_ms)
+        nbytes, ops = admm_work(BATCH, args[1].shape[1], kw["iters"])
+        b_ms, b_by = bound(nbytes, ops)
+        timing[name] = (ms, plain_ms, b_ms, b_by)
         phase(f"kernel_vs_plain:{name}", batch=BATCH, n=args[1].shape[1],
               iters=kw["iters"], max_abs_dx=dx, max_abs_dy=dy,
-              tol=admm_tol, kernel_ms=ms,
-              plain_ms=plain_ms)
+              tol=admm_tol, kernel_ms=ms, plain_ms=plain_ms,
+              achieved_GBps=nbytes / ms / 1e6, bound_ms=b_ms, bound_by=b_by,
+              share_of_bound=b_ms / ms)
 
     # 3. The slice: rollout_cadenced at B=2048 through the kernel.
     config = LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=10),
@@ -284,11 +368,15 @@ def main() -> int:
             plain_ms = card.time_ms(
                 lambda: fused_full_solve.fused_full_solve_reference(*ops,
                                                                     **kw), 3)
-            full_timing[(horizon, name)] = (ms, plain_ms)
+            rates = full_rates(ops, kw, ms)
+            if horizon == 10 and name == "warm":
+                rates["library_ms"] = card.time_ms(
+                    lambda: torch.linalg.inv(m_mat), 10)
+            full_timing[(horizon, name)] = (ms, plain_ms, rates)
             phase(f"full_vs_plain:h{horizon}:{name}", batch=BATCH,
                   n=m_mat.shape[-1], move_block=cfg.move_block,
                   iters=kw["iters"], **held, tol=full_tol, kernel_ms=ms,
-                  plain_ms=plain_ms)
+                  plain_ms=plain_ms, **rates)
 
     # 6. unrolled_dots vs plain, then the benchmark through the kernel.
     dots_err = {}
@@ -354,13 +442,27 @@ def main() -> int:
                 run_plain = fused_full_solve.fused_full_solve_reference
             ms = card.time_ms(lambda: run(*ops, **kw), 10)
             plain_ms = card.time_ms(lambda: run_plain(*ops, **kw), 3)
-            bench_timing[(horizon, kernel)] = (ms, plain_ms)
+            if solver == "loop":
+                nbytes, ops_admm = admm_work(BENCH_BATCH, x.shape[1],
+                                             kw["iters"])
+                b_ms, b_by = bound(nbytes, ops_admm)
+                measured = dict(achieved_GBps=nbytes / ms / 1e6,
+                                bound_ms=b_ms, bound_by=b_by,
+                                share_of_bound=b_ms / ms)
+            else:
+                measured = full_rates(ops, kw, ms)
+                # A yardstick for the inverse stage, never called by the
+                # port: the library's batched inverse of the same M.
+                measured["linalg_inv_ms"] = card.time_ms(
+                    lambda: torch.linalg.inv(ops[0]), 10)
+            bench_timing[(horizon, kernel)] = (ms, plain_ms, measured)
             rates = bench.update_rates(fn, args, BENCH_BATCH, reps=10,
                                        runs=3)
             phase(f"bench:h{horizon}:{solver}", batch=BENCH_BATCH,
                   n=x.shape[1], move_block=cfg.move_block,
                   kernel_launches=launches, **held, kernel_ms=ms,
-                  plain_ms=plain_ms, solves_per_s=rates[len(rates) // 2],
+                  plain_ms=plain_ms, **measured,
+                  solves_per_s=rates[len(rates) // 2],
                   band=f"{rates[0]:.1f}-{rates[-1]:.1f}",
                   card=json.dumps(smi))
         dforce = (first_step["loop"] - first_step["full"]).abs().max().item()
@@ -370,36 +472,56 @@ def main() -> int:
             raise RuntimeError(f"bench H={horizon}: routes differ by "
                                f"{dforce / MG:.4f} m*g")
 
+    full_warm = full_timing[(10, "warm")]
+    full_bench = bench_timing[(10, "fused_full_solve")]
+    loop_bench = bench_timing[(10, "fused_admm")]
+    dots_bytes = 2.0 * 1024 * 128 * 128 * 2
+    dots_ops = 2.0 * 128 ** 3 * 1024 * 10
+    dots_bound, dots_by = bound(dots_bytes, {"bf16": dots_ops})
+    dots_bound_f32, _ = bound(2 * dots_bytes, {"f32": dots_ops})
     print(json.dumps({"kernels": [{
         "name": "fused_admm", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/fused_admm.cu",
         "replaces": "quadruped_tpu/solvers/pallas_admm.py:210",
         "launches": launches_slice, "max_abs_err": max_err,
         "ms": timing["warm"][0], "plain_ms": timing["warm"][1],
+        "bound_ms": timing["warm"][2], "bound_by": timing["warm"][3],
+        "library_ms": None,
         "ms_cold": timing["cold"][0], "plain_ms_cold": timing["cold"][1],
+        "bound_ms_cold": timing["cold"][2],
         "launches_bench": bench_launches["fused_admm"],
-        "ms_bench": bench_timing[(10, "fused_admm")][0],
-        "plain_ms_bench": bench_timing[(10, "fused_admm")][1],
+        "ms_bench": loop_bench[0], "plain_ms_bench": loop_bench[1],
+        "bound_ms_bench": loop_bench[2]["bound_ms"],
     }, {
         "name": "fused_full_solve", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/fused_full_solve.cu",
         "replaces": "quadruped_tpu/solvers/pallas_admm.py:344",
         "launches": bench_launches["fused_full_solve"],
         "max_abs_err": full_err,
-        "ms": full_timing[(10, "warm")][0],
-        "plain_ms": full_timing[(10, "warm")][1],
+        "ms": full_warm[0], "plain_ms": full_warm[1],
+        "bound_ms": full_warm[2]["bound_ms"],
+        "bound_by": full_warm[2]["bound_by"],
+        "library_ms": full_warm[2]["library_ms"],
+        "library_call": "torch.linalg.inv on the same M (inverse stage only)",
+        "inverse_ms": full_warm[2]["inverse_ms"],
         "ms_cold": full_timing[(10, "cold")][0],
         "plain_ms_cold": full_timing[(10, "cold")][1],
-        "ms_bench": bench_timing[(10, "fused_full_solve")][0],
-        "plain_ms_bench": bench_timing[(10, "fused_full_solve")][1],
+        "ms_bench": full_bench[0], "plain_ms_bench": full_bench[1],
+        "bound_ms_bench": full_bench[2]["bound_ms"],
+        "inverse_ms_bench": full_bench[2]["inverse_ms"],
+        "library_ms_bench": full_bench[2]["linalg_inv_ms"],
     }, {
         "name": "unrolled_dots", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/unrolled_dots.cu",
         "replaces": "benchmarks/exp_mxu_rate.py:81",
         "launches": dots_launches, "max_abs_err": max(dots_err.values()),
         "ms": rate["bf16"]["kernel"][0], "plain_ms": rate["bf16"]["plain"][0],
+        "bound_ms": dots_bound, "bound_by": dots_by,
+        "library_ms": rate["bf16"]["matmul"][0],
         "ms_f32": rate["f32"]["kernel"][0],
         "plain_ms_f32": rate["f32"]["plain"][0],
+        "bound_ms_f32": dots_bound_f32,
+        "library_ms_f32": rate["f32"]["matmul"][0],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,7 +104,9 @@ def build_bench(batch: int, solver: str = "loop", horizon: int = 10,
     args are (rpy, feet, x0, contact, x_warm, y_warm): the next cadence
     problem's state and table and the cold boot's solution. The JAX bench's
     flip-aware warm-start shift is off in both of its configurations, so
-    the update here has none."""
+    the update here has none. Everything lies on the card unless `device`
+    says otherwise."""
+    device = card.resolve(device)
     if solver not in SOLVERS:
         raise ValueError(f"solver {solver!r} is not one of {SOLVERS}")
     cfg = bench_config(horizon, move_block)
@@ -186,7 +188,8 @@ def measure(batch: int, solver: str = "loop", horizon: int = 10,
             move_block=None, chunk: int = 0, reps: int = 20, runs: int = 5,
             device=None):
     """Returns (median solves/s, [min, max] band, analytic FLOPs per solve,
-    cfg) of `update_rates`."""
+    cfg) of `update_rates`, on the card unless `device` says otherwise."""
+    device = card.resolve(device)
     fn, args, cfg = build_bench(batch, solver, horizon, move_block, chunk,
                                 device)
     rates = update_rates(fn, args, batch, reps, runs)
@@ -209,8 +212,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rate, band, flops, cfg = measure(a.batch, a.solver, a.horizon,
-                                     chunk=a.chunk, reps=a.reps, runs=a.runs,
-                                     device=torch.device("cuda"))
+                                     chunk=a.chunk, reps=a.reps, runs=a.runs)
     tag = f", moveblock{cfg.move_block}" if cfg.move_block else ""
     if a.chunk > 0 and a.batch % a.chunk == 0 and a.batch > a.chunk:
         tag += f", chunk{a.chunk}"

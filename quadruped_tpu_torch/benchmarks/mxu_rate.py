@@ -40,7 +40,9 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 def problems(batch: int, dtype: torch.dtype, device=None) -> torch.Tensor:
     """[batch, 128, 128] standard normal matrices from seed 0, as the JAX
-    benchmark draws them, cast to dtype."""
+    benchmark draws them, cast to dtype, on the card unless `device` says
+    otherwise."""
+    device = card.resolve(device)
     m = np.random.default_rng(0).normal(size=(batch, N, N))
     return torch.as_tensor(m, dtype=torch.float32, device=device).to(dtype)
 
@@ -117,7 +119,9 @@ VERSIONS = {"kernel": unrolled_dots, "plain": unrolled_dots_reference,
 def measure(batch: int = 1024, iters: int = 10, reps: int = 10,
             device=None) -> dict:
     """{dtype: {version: (ms, TFLOP/s)}} on the card for the three versions.
-    FLOPs: 2 * 128^3 per product, batch * iters products."""
+    FLOPs: 2 * 128^3 per product, batch * iters products. The problems lie
+    on the card unless `device` says otherwise."""
+    device = card.resolve(device)
     flops = 2 * N ** 3 * batch * iters
     out = {}
     for tag, dtype in DTYPES.items():
@@ -140,7 +144,7 @@ def main(argv=None) -> int:
                          "the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    res = measure(a.batch, a.iters, a.reps, torch.device("cuda"))
+    res = measure(a.batch, a.iters, a.reps)
     print(f"card: {card.name_and_power_limit()}")
     for tag, versions in res.items():
         for name, (ms, tflops) in versions.items():

@@ -7,6 +7,7 @@ import dataclasses
 import torch
 
 from quadruped_tpu_torch.core.filters import low_pass
+from quadruped_tpu_torch.utils import card
 
 
 class ControlMode:
@@ -30,7 +31,9 @@ class TwistCommand:
     @classmethod
     def constant(cls, vx=0.0, vy=0.0, wz=0.0, body_height=0.27,
                  gait_switch=0.0, batch: int | None = None, device=None):
-        """Each argument is a number or a [B] array; all broadcast to [B]."""
+        """Each argument is a number or a [B] array; all broadcast to [B],
+        on the card unless `device` says otherwise."""
+        device = card.resolve(device)
         vals = [torch.as_tensor(v, dtype=torch.float32, device=device)
                 for v in (vx, vy, wz, body_height, gait_switch)]
         if batch is None:

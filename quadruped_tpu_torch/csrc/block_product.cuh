@@ -1,6 +1,7 @@
 // One n x n matrix product per thread block, operands and result in shared
-// memory, float32 FMA: the routine of the Newton-Schulz stage of
-// fused_full_solve.cu and of the chained-product benchmark unrolled_dots.cu.
+// memory, float32 FMA on the CUDA cores: the routine of the chained-product
+// benchmark unrolled_dots.cu, its only user (fused_full_solve.cu's
+// Newton-Schulz stage runs on the tensor cores, tc_product.cuh).
 //
 // Layout: both operands row-major with leading dimension ld = n + 1. The
 // block's threads tile the n x n result; thread t < T * T (T = ceil(n / 8))

@@ -9,15 +9,23 @@
 // schemes (relaxed, Fast-ADMM) are the device functions of admm_loop.cuh,
 // which fused_full_solve.cu runs too.
 //
-// What bounds it on this card: each iteration reads the n x n f32 M^{-1}
-// from shared memory once (4 n^2 bytes, 57.6 KB at n = 120) and does 2 n^2
-// FLOP; the rest is O(n + m). The working set (M^{-1} plus twelve vectors,
-// 65.4 KB at n = 120) allows three blocks per SM, so at small batch the
-// loop is latency-bound on the serial iteration chain, not bandwidth-bound.
-// The design keeps every operand in shared memory for the whole solve, so
-// device memory is touched once per problem (M^{-1} in, x and y out) instead
-// of once per iteration as in the unfused loop, and splits each mat-vec row
-// into four independent FMA chains to shorten the dependent chain.
+// What bounds it on this card: device memory is touched once per problem,
+// 4 n^2 bytes of M^{-1} in (57.6 KB at n = 120; 0.15 ms for B = 8192 at
+// 3.35 TB/s), then 24 (warm) or 400 (boot) iterations of ~2 n^2 FLOP each
+// on data that stays on chip. The iterations form a serial chain (mat-vec,
+// barrier, cone update, barrier), so at the batch sizes of the MPC the loop
+// is latency-bound: its time is iterations x chain latency x problems per
+// SM / problems resident per SM. The design shortens the chain: M^{-1} is
+// read from device memory once into registers (admm_loop.cuh, `Slice`), so
+// an iteration reads only rhs from shared memory, runs four independent
+// FMA chains of R = n / 8 a thread and sums across 8 lanes by warp
+// shuffles; the cone update runs on six lanes a triple with its state in
+// registers; two barriers per iteration instead of three. Shared memory
+// holds only rhs and x_t (2 KB), so residency is set by registers: 256
+// threads (8 warps) a block for n <= 128 at ~107 registers, two blocks (16
+// warps) per SM, where the previous design ran 3 blocks of 4 warps. The 64
+// floats of M^{-1} a thread are what keeps a third block out. n = 192 runs
+// 768 threads a block (S = 16 lanes a column), one block per SM.
 
 #include <cuda_runtime.h>
 
@@ -25,9 +33,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads) fused_admm_kernel(
+template <int S, int R, int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) fused_admm_kernel(
     const float* __restrict__ m_inv, const float* __restrict__ q,
     const float* __restrict__ mu, const float* __restrict__ lo,
     const float* __restrict__ hi, const float* __restrict__ rho,
@@ -36,27 +43,42 @@ __global__ void __launch_bounds__(kThreads) fused_admm_kernel(
     float sigma, float alpha, int accel_restart) {
   extern __shared__ float smem[];
   const size_t b = blockIdx.x;
-  float* s_minv = smem;  // [n * n]
-  const admm::Vectors v = admm::carve(s_minv + n * n, n);
-
+  const admm::Vectors v = admm::carve(smem);
   const float mub = mu[b];
-  const float* g_minv = m_inv + b * n * n;
-  for (int i = threadIdx.x; i < n * n; i += kThreads) s_minv[i] = g_minv[i];
-  admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0);
-  admm::iterate(s_minv, n, v, n, mub, iters, sigma, alpha, accel_restart);
-  admm::store(v, n, b, x_out, y_out);
+  admm::Slice<S, R> slice;
+  admm::load_slice(slice, m_inv + b * n * n, n, n);
+  admm::Lane lane = admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0);
+  admm::iterate(slice, v, lane, n, mub, iters, sigma, alpha, accel_restart);
+  admm::store(lane, n, b, x_out, y_out);
 }
 
-// Dynamic shared memory of one block: M^{-1}, four n-vectors, eight
-// m-vectors (solvers/fused_admm.py::smem_bytes checks it before launch).
-size_t smem_bytes(int n) {
-  return (static_cast<size_t>(n) * n + admm::vector_floats(n)) *
-         sizeof(float);
+template <int S, int R, int kMaxThreads, int kMinBlocks>
+int launch(const void* m_inv, const void* q, const void* mu, const void* lo,
+           const void* hi, const void* rho, const void* x0, const void* y0,
+           void* x_out, void* y_out, int batch, int n, int iters, float sigma,
+           float alpha, int accel_restart, cudaStream_t stream) {
+  // S lanes for each group of four columns in whole warps, and six lanes
+  // a force triple.
+  int threads = ((S * ((n + 3) / 4) + 31) / 32) * 32;
+  if (threads < admm::triple_threads(n)) threads = admm::triple_threads(n);
+  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = admm::kVectorFloats * sizeof(float);
+  if (batch == 0) return 0;
+  fused_admm_kernel<S, R, kMaxThreads, kMinBlocks>
+      <<<batch, threads, smem, stream>>>(
+          static_cast<const float*>(m_inv), static_cast<const float*>(q),
+          static_cast<const float*>(mu), static_cast<const float*>(lo),
+          static_cast<const float*>(hi), static_cast<const float*>(rho),
+          static_cast<const float*>(x0), static_cast<const float*>(y0),
+          static_cast<float*>(x_out), static_cast<float*>(y_out), n, iters,
+          sigma, alpha, accel_restart);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = success).
+// n must be a multiple of 3 and of 4 (n = 12 G) and at most 192.
 extern "C" int fused_admm_launch(const void* m_inv, const void* q,
                                  const void* mu, const void* lo,
                                  const void* hi, const void* rho,
@@ -64,19 +86,19 @@ extern "C" int fused_admm_launch(const void* m_inv, const void* q,
                                  void* y_out, int batch, int n, int iters,
                                  float sigma, float alpha, int accel_restart,
                                  void* stream) {
-  const size_t smem = smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch == 0) return 0;
-  fused_admm_kernel<<<batch, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m_inv), static_cast<const float*>(q),
-      static_cast<const float*>(mu), static_cast<const float*>(lo),
-      static_cast<const float*>(hi), static_cast<const float*>(rho),
-      static_cast<const float*>(x0), static_cast<const float*>(y0),
-      static_cast<float*>(x_out), static_cast<float*>(y_out), n, iters, sigma,
-      alpha, accel_restart);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n % 12 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 64)
+    return launch<8, 8, 256, 2>(m_inv, q, mu, lo, hi, rho, x0, y0, x_out,
+                                y_out, batch, n, iters, sigma, alpha,
+                                accel_restart, st);
+  if (n <= 128)
+    return launch<8, 16, 256, 2>(m_inv, q, mu, lo, hi, rho, x0, y0, x_out,
+                                 y_out, batch, n, iters, sigma, alpha,
+                                 accel_restart, st);
+  if (n <= 192)
+    return launch<16, 12, 768, 1>(m_inv, q, mu, lo, hi, rho, x0, y0, x_out,
+                                  y_out, batch, n, iters, sigma, alpha,
+                                  accel_restart, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from quadruped_tpu_torch.utils import card
+
 
 class LegState:
     """Leg-state codes (reference qr_enum_types.h LegState)."""
@@ -51,6 +53,8 @@ class GaitConfig:
 
 def _config(stance, duty, phases, wait_time=0.3, threshold=0.5,
             touchdown_wait=False, device=None) -> GaitConfig:
+    device = card.resolve(device)
+
     def f(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -67,7 +71,8 @@ def _config(stance, duty, phases, wait_time=0.3, threshold=0.5,
 
 
 def ADVANCED_TROT(device=None) -> GaitConfig:
-    """The reference's advanced trot (openloop_gait_generator.yaml)."""
+    """The reference's advanced trot (openloop_gait_generator.yaml), on the
+    card unless `device` says otherwise."""
     return _config(0.5, 0.6, [0.5, 0.0, 0.0, 0.5], touchdown_wait=True,
                    device=device)
 

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from quadruped_tpu_torch.utils import card
+
 # Side sign of the hip (abduction) link y-offset per leg: right legs -1.
 SIDE_SIGN = (-1.0, 1.0, -1.0, 1.0)
 NUM_LEGS = 4
@@ -59,7 +61,10 @@ class RobotParams:
 
 
 def a1_params(device=None) -> RobotParams:
-    """Unitree A1 (reference: quadruped/config/a1_sim/a1_sim.yaml)."""
+    """Unitree A1 (reference: quadruped/config/a1_sim/a1_sim.yaml), on the
+    card unless `device` says otherwise."""
+    device = card.resolve(device)
+
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 

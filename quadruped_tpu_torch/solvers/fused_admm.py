@@ -2,8 +2,8 @@
 
 Port of quadruped_tpu/solvers/pallas_admm.py::fused_admm. The kernel
 (csrc/fused_admm.cu) runs every ADMM iteration of one problem in one
-thread block with that problem's M^{-1} in shared memory; see the source
-for what it computes and what bounds it.
+thread block with that problem's M^{-1} in the registers of its threads;
+see the source for what it computes and what bounds it.
 
 `fused_admm` is the wrapper the solver calls. On CPU tensors it runs
 `fused_admm_reference`, the same loop in torch ops. On CUDA tensors it
@@ -27,8 +27,11 @@ import torch
 from quadruped_tpu_torch.utils import cuda_build
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_admm.cu"
-# Shared memory a block may use on Hopper (bytes).
-MAX_SMEM = 232448
+# Largest n the kernel takes: 768 threads a block hold M^{-1} in registers
+# (csrc/admm_loop.cuh), enough for H = 16 unblocked.
+MAX_N = 192
+# Padded length of rhs and x_t in shared memory (admm_loop.cuh kVecPad).
+VEC_PAD = 256
 
 
 def _apply_a(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -104,16 +107,10 @@ def _library():
     return lib
 
 
-
-def vector_floats(n: int) -> int:
-    """Floats of the per-problem vectors in shared memory (four n-vectors,
-    eight m-vectors; admm_loop.cuh)."""
-    return 4 * n + 8 * (n // 3) * 5
-
-
-def smem_bytes(n: int) -> int:
-    """Dynamic shared memory one block takes for n variables."""
-    return (n * n + vector_floats(n)) * 4
+# Floats of the vectors in shared memory: rhs and x_t, each padded to
+# VEC_PAD (admm_loop.cuh kVectorFloats; every other vector lives in
+# registers).
+VECTOR_FLOATS = 2 * VEC_PAD
 
 
 def check_operands(mat, q, mu, lo, hi, rho, x0, y0, mat_name="m_inv"):
@@ -153,9 +150,8 @@ def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
     if q.device.type != "cuda":
         raise ValueError(f"fused_admm: no kernel for device {q.device}")
     b, n = q.shape
-    if smem_bytes(n) > MAX_SMEM:
-        raise ValueError(f"n = {n} needs {smem_bytes(n)} B of shared memory"
-                         f" per block, more than {MAX_SMEM}")
+    if n % 12 or n > MAX_N:
+        raise ValueError(f"n = {n}: the kernel takes n = 12 G <= {MAX_N}")
     lib = _library()
     args = [t.contiguous() for t in (m_inv, q, mu, lo, hi, rho, x0, y0)]
     x = torch.empty_like(args[6])

@@ -4,7 +4,7 @@ wrapper and plain version.
 Port of quadruped_tpu/solvers/pallas_admm.py::fused_full_solve. The kernel
 (csrc/fused_full_solve.cu) takes M itself, not its inverse: one thread
 block per problem inverts M by the mixed-precision Newton-Schulz iteration
-in shared memory and runs every ADMM iteration on the result; see the
+on the tensor cores and runs every ADMM iteration on the result; see the
 source for the arithmetic and what bounds it.
 
 `fused_full_solve` is the wrapper `cone_qp.solve_fused_full` calls. On CPU
@@ -14,9 +14,9 @@ launch) or raises; it never falls back to the plain version there.
 `fused_full_solve.launches` counts kernel launches.
 
 Layout as in solvers/fused_admm.py: live sizes n = 3T, m = 5T, mu per
-problem. Three float32 n x (n + 1) matrices and the loop's vectors must fit
-in one block's shared memory, so n <= 132 (H = 10, or H = 16 with move
-blocking (4, 2): n = 120; H = 16 unblocked, n = 192, does not fit).
+problem. The kernel pads M to 128 x 128, so n <= 128 on every device, as
+the Pallas kernel's N_PAD = 128 (H = 10, or H = 16 with move blocking
+(4, 2): n = 120; H = 16 unblocked, n = 192, is refused).
 """
 
 from __future__ import annotations
@@ -32,11 +32,11 @@ from quadruped_tpu_torch.utils import cuda_build
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_full_solve.cu"
 
 
-def smem_bytes(n: int) -> int:
-    """Dynamic shared memory one block takes for n variables: M, X and
-    2I - MX with row stride n + 1, 32 floats of reduction scratch, and the
-    loop's vectors."""
-    return (3 * n * (n + 1) + 32 + _fa.vector_floats(n)) * 4
+N_PAD = 128
+# Dynamic shared memory of one block, whatever n: three bf16 128 x 128
+# tiles (M, X, 2I - MX), 1024 bytes to align them, 32 floats of reduction
+# scratch and the loop's vectors (csrc/fused_full_solve.cu kSmemBytes).
+SMEM_BYTES = 3 * N_PAD * N_PAD * 2 + 1024 + (32 + _fa.VECTOR_FLOATS) * 4
 
 
 def _steps(ns_iters: int, ns_f32_polish: int) -> tuple[int, int]:
@@ -48,28 +48,56 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16(a) bf16(b) summed in float32, as a float32 tensor: the kernel's
+    bf16-in, f32-accumulate product. On the card it is one bf16 product on
+    the tensor cores with a float32 result, the working type of the kernel;
+    on the CPU the products of bf16 values are exact in float32 and summed
+    there."""
+    if a.is_cuda:
+        return torch.bmm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                         out_dtype=torch.float32)
+    return torch.bmm(_bf16(a), _bf16(b))
+
+
+def dot_3pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b as pallas_admm._dot_f32_3pass computes it: both operands split
+    into bf16 hi + lo parts, hi.hi + hi.lo + lo.hi, three `bf16_product`s
+    summed in float32."""
+    a_hi, b_hi = _bf16(a), _bf16(b)
+    a_lo, b_lo = _bf16(a - a_hi), _bf16(b - b_hi)
+    return (bf16_product(a_hi, b_hi) + bf16_product(a_hi, b_lo)
+            + bf16_product(a_lo, b_hi))
+
+
 def newton_schulz_reference(m: torch.Tensor, ns_iters: int,
-                            ns_f32_polish: int) -> torch.Tensor:
+                            ns_f32_polish: int,
+                            live: int | None = None) -> torch.Tensor:
     """The kernel's inverse in torch ops: X0 = I (1 / ||M||_inf), bf16 steps
     X <- X_b (2I - M_b X_b)_b (subscript b: rounded to bf16; products in
-    float32, the result kept in float32), then float32 steps.
+    `bf16_product`, the result kept in float32), then polish steps
+    X <- X (2I - M X) with both products in `dot_3pass`.
 
     This is the Pallas kernel's schedule; it differs from
-    `cone_qp.newton_schulz_inverse` (the closed loop's inverse) in two
-    roundings: X0's reciprocal is taken in float32, not bf16, and the last
-    bf16 step's product is not rounded before the polish.
+    `cone_qp.newton_schulz_inverse` (the closed loop's inverse) in three
+    roundings: X0's reciprocal is taken in float32, not bf16, the last bf16
+    step's product is not rounded before the polish, and the polish is the
+    3-pass split, not a float32 product.
+
+    `live` (default: all rows) sets X0's diagonal on the first `live` rows
+    only, as the kernel does on M padded with zeros beyond its live block.
     """
     n = m.shape[-1]
     n_bf, n_f32 = _steps(ns_iters, ns_f32_polish)
     norm = torch.amax(torch.sum(torch.abs(m), dim=-1), dim=-1)
     eye = torch.eye(n, dtype=m.dtype, device=m.device)
-    x = eye * (1.0 / norm)[:, None, None]
-    m_bf = _bf16(m)
+    x0_diag = eye if live is None else torch.diag(
+        (torch.arange(n, device=m.device) < live).to(m.dtype))
+    x = x0_diag * (1.0 / norm)[:, None, None]
     for _ in range(n_bf):
-        xb = _bf16(x)
-        x = torch.bmm(xb, _bf16(2.0 * eye - torch.bmm(m_bf, xb)))
+        x = bf16_product(x, 2.0 * eye - bf16_product(m, x))
     for _ in range(n_f32):
-        x = torch.bmm(x, 2.0 * eye - torch.bmm(m, x))
+        x = dot_3pass(x, 2.0 * eye - dot_3pass(m, x))
     return x
 
 
@@ -108,13 +136,14 @@ def fused_full_solve(m, q, mu, lo, hi, rho, x0, y0, *, ns_iters: int,
     m [B, n, n] (M, not its inverse), q [B, n], mu [B], lo/hi/rho [B, m],
     x0 [B, n], y0 [B, m], float32 on one device. Returns (x [B, n],
     y [B, m]), and the inverse [B, n, n] third when `return_inverse`.
-    Raises ValueError when n is too large for one block's shared memory.
+    Raises ValueError for n > 128 on every device, and on the card for n
+    not a multiple of 12 (n = 12 G).
     """
     _fa.check_operands(m, q, mu, lo, hi, rho, x0, y0, mat_name="m")
     b, n = q.shape
-    if smem_bytes(n) > _fa.MAX_SMEM:
-        raise ValueError(f"n = {n} needs {smem_bytes(n)} B of shared memory"
-                         f" per block, more than {_fa.MAX_SMEM}")
+    if n > N_PAD:
+        raise ValueError(f"n = {n}: the kernel pads M to {N_PAD} x {N_PAD}, "
+                         f"so n <= {N_PAD}")
     kw = dict(iters=iters, sigma=sigma, alpha=alpha,
               accel_restart=accel_restart)
     if q.device.type == "cpu":
@@ -124,6 +153,8 @@ def fused_full_solve(m, q, mu, lo, hi, rho, x0, y0, *, ns_iters: int,
         return (x, y, m_inv) if return_inverse else (x, y)
     if q.device.type != "cuda":
         raise ValueError(f"fused_full_solve: no kernel for device {q.device}")
+    if n % 12:
+        raise ValueError(f"n = {n}: the kernel takes n = 12 G")
     lib = _library()
     args = [t.contiguous() for t in (m, q, mu, lo, hi, rho, x0, y0)]
     x = torch.empty_like(args[6])

@@ -18,6 +18,7 @@ from quadruped_tpu_torch.dynamics import srb
 from quadruped_tpu_torch.robots.params import a1_params
 from quadruped_tpu_torch.solvers import condense
 from quadruped_tpu_torch.solvers.cone_qp import ConeQP
+from quadruped_tpu_torch.utils import card
 
 DT_MPC = 0.03
 STATE_WEIGHTS = (10, 10, 5, 40, 60, 100, 0, 0, 0.5, 5, 5, 1, 0.0)
@@ -52,7 +53,9 @@ def trot_table(batch: int, t: float, rng: np.random.Generator,
 
 def bench_problems(batch: int, horizon: int = 10, t: float = 0.0,
                    seed: int = 0, device=None):
-    """Returns (ConeQP with [B] leading axis, contact table [B, H, 4])."""
+    """Returns (ConeQP with [B] leading axis, contact table [B, H, 4]), on
+    the card unless `device` says otherwise."""
+    device = card.resolve(device)
     rng = np.random.default_rng(seed)
     rpy, feet, x0 = bench_states(batch, t, rng)
     table = trot_table(batch, t, rng, horizon)

@@ -1,11 +1,27 @@
-"""The card a measurement ran on, for the lines that carry a time or a rate,
-and device time on it."""
+"""The card the port runs on: the default device of its entry points, the
+card a measurement ran on (for the lines that carry a time or a rate), and
+device time on it."""
 
 from __future__ import annotations
 
 import subprocess
 
 import torch
+
+
+def default_device() -> torch.device:
+    """The device an entry point builds on when its caller names none: the
+    card. Raises when there is no card; it never falls back to the CPU
+    (CPU callers pass device="cpu")."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's entry points run on "
+                           "the card unless the caller passes device='cpu'")
+    return torch.device("cuda")
+
+
+def resolve(device=None) -> torch.device:
+    """`device` as given, else `default_device()`."""
+    return default_device() if device is None else torch.device(device)
 
 
 def name_and_power_limit() -> str:

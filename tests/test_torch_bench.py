@@ -48,7 +48,7 @@ def test_update_matches_jax(horizon, solver, monkeypatch):
     """Inputs exactly; the cold boot's solution, the timed update's forces
     and its duals within TOL."""
     (jx, jy), jargs, jcfg = _jax_bench(horizon, solver, monkeypatch)
-    fn, args, cfg = tbench.build_bench(B, solver, horizon)
+    fn, args, cfg = tbench.build_bench(B, solver, horizon, device="cpu")
     assert cfg.move_block == jcfg.move_block
     assert cfg.n_force_groups == jcfg.n_force_groups == 10
     for got, want in zip(args[:4], jargs[:4]):
@@ -67,8 +67,8 @@ def test_update_matches_jax(horizon, solver, monkeypatch):
 def test_chunked_matches_monolithic():
     """Chunking only slices the batch: 4 chunks of 4 against the whole
     batch, to float32 roundoff of the batched products (1e-3 N)."""
-    fn_c, args, _ = tbench.build_bench(B, "loop", 10, chunk=4)
-    fn_m, _, _ = tbench.build_bench(B, "loop", 10, chunk=0)
+    fn_c, args, _ = tbench.build_bench(B, "loop", 10, chunk=4, device="cpu")
+    fn_m, _, _ = tbench.build_bench(B, "loop", 10, chunk=0, device="cpu")
     xc, _ = fn_c(*args)
     xm, _ = fn_m(*args)
     assert float((xc - xm).abs().max()) < 1e-3
@@ -78,7 +78,7 @@ def test_flop_model_and_configurations():
     """The FLOP model equals the JAX one; `minv_reuse` is a parameter and
     raises (the seeded inverse is not ported). move_block None keeps the
     configuration's own, () unblocks: H=16 unblocked is n = 192, which the
-    fused solve refuses."""
+    fused solve refuses (it pads M to 128, as the Pallas kernel does)."""
     import bench as jbench
     from quadruped_tpu.control.mpc import MpcConfig, long_horizon_config
 
@@ -91,9 +91,10 @@ def test_flop_model_and_configurations():
             jbench.analytic_flops_per_solve(jcfg)
     with pytest.raises(NotImplementedError):
         tbench.analytic_flops_per_solve(cfg, minv_reuse=True)
-    fn, args, cfg = tbench.build_bench(2, "full", 16, move_block=())
+    fn, args, cfg = tbench.build_bench(2, "full", 16, move_block=(),
+                                       device="cpu")
     assert cfg.n_force_groups == 16
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="n <= 128"):
         fn(*args)
     with pytest.raises(ValueError, match="solver"):
-        tbench.build_bench(2, "xla", 10)
+        tbench.build_bench(2, "xla", 10, device="cpu")

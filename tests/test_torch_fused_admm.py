@@ -5,7 +5,7 @@
   tests/test_pallas_admm.py runs it. Both get the same scaled problem and
   the same M^{-1} (the JAX one, unpadded for the port).
 * On the card (marker `cuda`): the CUDA kernel against the plain version at
-  B=256, H=10. This module imports no JAX at module level, so the card test
+  B=256, H=5, 10 and 16 (n = 60, 120, 192). This module imports no JAX at module level, so the card test
   also runs where JAX is absent:
       python -m pytest --noconftest -p no:cacheprovider -m cuda \
           tests/test_torch_fused_admm.py
@@ -135,7 +135,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     and counts no kernel launch."""
     from quadruped_tpu_torch.solvers.problems import bench_problems
 
-    prob, _ = bench_problems(4, horizon=4)
+    prob, _ = bench_problems(4, horizon=4, device="cpu")
     inp = tcq.admm_inputs(prob)
     args = (inp.m_inv, inp.q, inp.mu, inp.lo, inp.hi, inp.rho, inp.x0, inp.y0)
     before = tfa.fused_admm.launches
@@ -159,18 +159,32 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (horizon, iters, alpha, accel_restart): the boot solve's 400 relaxed
+# iterations and the production warm Fast-ADMM scheme at n = 12 H.
+CARD_CASES = [(5, 400, 1.6, 0), (10, 400, 1.6, 0), (5, 24, 1.0, 20),
+              (10, 24, 1.0, 20), (16, 24, 1.0, 20)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("iters,alpha,restart", [(400, 1.6, 0),
-                                                 (24, 1.0, 20)],
-                         ids=["relaxed_cold", "accel_warm"])
-def test_kernel_matches_plain_on_card(cuda_device, iters, alpha, restart):
+@pytest.mark.parametrize("horizon,iters,alpha,restart", CARD_CASES,
+                         ids=["relaxed_cold-n60", "relaxed_cold-n120",
+                              "accel_warm-n60", "accel_warm-n120",
+                              "accel_warm-n192"])
+def test_kernel_matches_plain_on_card(cuda_device, horizon, iters, alpha,
+                                      restart):
     """CUDA kernel vs its plain version on the same card and inputs, B=256,
-    H=10. Tolerance: max |dx|, |dy| <= 1e-3 + 1e-4 |value| on the scaled
-    iterates — the kernel sums the mat-vec in four FMA chains, the plain
-    version in cuBLAS order; nothing else differs."""
+    n = 12 H for H = 5, 10 and 16 (the closed loop's test size, production,
+    and H = 16 unblocked, the register shape of 768 threads). Tolerance:
+    max |dx|, |dy| <= 1e-3 + 1e-4 |value| on the scaled iterates — the
+    kernel sums the mat-vec as 8 or 16 partial sums joined by warp
+    shuffles, the plain version in cuBLAS order; nothing else differs. At
+    n = 192 the 400 relaxed iterations of the boot amplify that change of
+    summation order past this tolerance (two float32 orders of the plain
+    loop itself differ as much there), so n = 192 is held in the warm
+    scheme, the one the closed loop runs every period."""
     from quadruped_tpu_torch.solvers.problems import bench_problems
 
-    prob, _ = bench_problems(256, horizon=H, device=cuda_device)
+    prob, _ = bench_problems(256, horizon=horizon, device=cuda_device)
     inp = tcq.admm_inputs(prob)
     if restart:  # warm start from a cold kernel solve, as the cadence does
         x0, y0 = tfa.fused_admm(*inp[:8], iters=400, sigma=tcq.SIGMA,

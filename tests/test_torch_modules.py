@@ -130,7 +130,7 @@ def case_splines():
 
 def case_kinematics():
     rng = _rng(4)
-    tp, jp = a1_params(), j_a1()
+    tp, jp = a1_params("cpu"), j_a1()
     q = _joints(rng, B)
     f = rng.normal(size=(B, 4, 3)).astype(np.float32) * 30
     v = rng.normal(size=(B, 4, 3)).astype(np.float32)
@@ -169,7 +169,7 @@ def _srb_inputs(seed):
 
 def case_srb():
     rpy, feet, x0, _ = _srb_inputs(5)
-    tp, jp = a1_params(), j_a1()
+    tp, jp = a1_params("cpu"), j_a1()
     r = np.asarray(j_se3.rpy_to_rotmat(rpy))
     ja, jb = jax.vmap(lambda rr, ff: j_srb.srb_continuous(
         rr, jp.total_inertia, jp.total_mass, ff))(r, feet)
@@ -238,11 +238,11 @@ def case_gait():
     jg = jax.vmap(lambda g, c: j_sched.gait_update(cfg.gait, g, t, c))(
         ctrl.gait, contact)
     tg_in = to_torch(ctrl.gait, t_sched.GaitState)
-    tg = t_sched.gait_update(ADVANCED_TROT(), tg_in, torch.full((B,), t),
+    tg = t_sched.gait_update(ADVANCED_TROT("cpu"), tg_in, torch.full((B,), t),
                              tt(contact))
     jt = jax.vmap(lambda g: j_sched.predicted_contact_table(
         cfg.gait, g, 0.03, 10))(jg)
-    tt_ = t_sched.predicted_contact_table(ADVANCED_TROT(), tg, 0.03, 10)
+    tt_ = t_sched.predicted_contact_table(ADVANCED_TROT("cpu"), tg, 0.03, 10)
     return [(as_numpy(tg), as_numpy(jg)), (tt_, jt)], {}
 
 
@@ -274,8 +274,9 @@ def case_swing():
     jout = jax.vmap(lambda g, s, o, d: j_swing.swing_step(
         cfg.swing, j_a1(), cfg.gait, g, s, o, d))(
         ctrl.gait, ctrl.swing, jobs, ctrl.command)
-    tout = t_swing.swing_step(t_swing.SwingConfig(), a1_params(),
-                              ADVANCED_TROT(), tctrl.gait, tctrl.swing, obs,
+    tout = t_swing.swing_step(t_swing.SwingConfig(), a1_params("cpu"),
+                              ADVANCED_TROT("cpu"), tctrl.gait, tctrl.swing,
+                              obs,
                               tctrl.command)
     # IK and the damped Jacobian solve in the chain: 1e-4.
     return [(as_numpy(tout[3]), as_numpy(jout[3]))] \
@@ -290,7 +291,8 @@ def _mpc_case(mode):
     jout = jax.vmap(lambda g, s, o, d, f: j_mpc.mpc_step(
         jcfg, j_a1(), cfg.gait, g, s, o, d, foot_targets_world=f))(
         ctrl.gait, ctrl.mpc, jobs, ctrl.command, ctrl.swing.foot_target_world)
-    tout = t_mpc.mpc_step(tcfg, a1_params(), ADVANCED_TROT(), tctrl.gait,
+    tout = t_mpc.mpc_step(tcfg, a1_params("cpu"), ADVANCED_TROT("cpu"),
+                          tctrl.gait,
                           tctrl.mpc, obs, tctrl.command,
                           foot_targets_world=tctrl.swing.foot_target_world)
     return jout, tout
@@ -339,7 +341,8 @@ def case_srb_sim_step():
     jnew = jax.vmap(lambda s, f, st, q, dq, sm: j_sim.srb_sim_step(
         j_a1(), s, f, st, q, dq, sm, 0.002))(sim, forces, stance, q_des,
                                              dq_des, swing_mask)
-    tnew = t_sim.srb_sim_step(a1_params(), to_torch(sim, t_sim.SrbSimState),
+    tnew = t_sim.srb_sim_step(a1_params("cpu"),
+                              to_torch(sim, t_sim.SrbSimState),
                               tt(forces), tt(stance), tt(q_des), tt(dq_des),
                               tt(swing_mask), 0.002)
     # Stance IK + damped Jacobian solve: joint velocities to 1e-3 rad/s.

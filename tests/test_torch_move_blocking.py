@@ -201,7 +201,8 @@ def test_mpc_cold_start_matches_jax(name):
     jcfg, tcfg, want = _cold_start(name)
     obs, des, gait, _ = _inputs(jcfg.horizon, TIMES - 0.03)
     tobs, tdes, tgait = _port(obs, des, gait)
-    got = t_mpc.mpc_cold_start(tcfg, a1_params(), ADVANCED_TROT(), tgait,
+    got = t_mpc.mpc_cold_start(tcfg, a1_params("cpu"), ADVANCED_TROT("cpu"),
+                               tgait,
                                t_mpc.mpc_init(tcfg, B), tobs, tdes)
     assert got.warm_primal.shape == (B, 12 * tcfg.n_force_groups)
     _compare_state(got, want)
@@ -230,6 +231,6 @@ def test_mpc_solve_matches_jax(name):
         jcfg, params, s, o, d, c, r, h)))(js, obs, des, table, rpy_comp,
                                           height)
     tobs, tdes, _ = _port(obs, des, gait)
-    got = t_mpc.mpc_solve(tcfg, a1_params(), to_torch(js, t_mpc.MpcState),
+    got = t_mpc.mpc_solve(tcfg, a1_params("cpu"), to_torch(js, t_mpc.MpcState),
                           tobs, tdes, tt(table), tt(rpy_comp), tt(height))
     _compare_state(got, want)

@@ -56,7 +56,7 @@ def test_plain_chain_matches_jnp(dtype):
     TOL."""
     import jax.numpy as jnp
 
-    m = mxu_rate.problems(B, mxu_rate.DTYPES[dtype])
+    m = mxu_rate.problems(B, mxu_rate.DTYPES[dtype], "cpu")
     want = _jnp_chain(jnp.asarray(m.float().numpy()).astype(
         jnp.bfloat16 if dtype == "bf16" else jnp.float32), ITERS)
     for name in ("plain", "matmul"):
@@ -70,7 +70,7 @@ def test_plain_chain_matches_jnp(dtype):
 def test_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper runs the plain version (bit-identical)
     and counts no launch; it refuses other shapes and types."""
-    m = mxu_rate.problems(2, torch.bfloat16)
+    m = mxu_rate.problems(2, torch.bfloat16, "cpu")
     before = mxu_rate.unrolled_dots.launches
     assert torch.equal(mxu_rate.unrolled_dots(m, 2),
                        mxu_rate.unrolled_dots_reference(m, 2))

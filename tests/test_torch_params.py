@@ -5,6 +5,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from quadruped_tpu.control import mpc as jm, swing as js
@@ -20,7 +21,7 @@ from quadruped_tpu_torch.utils.convert import as_numpy, to_torch
 
 def test_a1_params_equal_jax():
     """Every field, exactly (both are float32 casts of the same numbers)."""
-    port, ref = a1_params(), j_a1()
+    port, ref = a1_params("cpu"), j_a1()
     for f in dataclasses.fields(RobotParams):
         got = getattr(port, f.name)
         assert got.dtype == torch.float32, f.name
@@ -76,3 +77,32 @@ def test_converter_round_trips_vmapped_locomotion_state():
                       batch=5)
     assert single.swing.foot_target_world.shape == (5, 4, 3)
     assert torch.equal(single.mpc.warm_primal[4], port.mpc.warm_primal[0])
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device named, the entry points build on the card: the default
+    is cuda where a card is found, and where none is they raise instead of
+    building on the CPU."""
+    from quadruped_tpu_torch import bench
+    from quadruped_tpu_torch.benchmarks import mxu_rate
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.solvers.problems import bench_problems
+    from quadruped_tpu_torch.utils import card
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert card.default_device() == torch.device("cuda")
+    assert card.resolve() == torch.device("cuda")
+    assert card.resolve("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    constructors = [a1_params, ADVANCED_TROT,
+                lambda: TwistCommand.constant(vx=0.3),
+                lambda: bench_problems(2, horizon=2),
+                lambda: bench.build_bench(2, "loop", 10),
+                lambda: bench.measure(2),
+                lambda: mxu_rate.problems(2, torch.float32),
+                lambda: mxu_rate.measure(2, 1)]
+    for build in constructors:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert a1_params("cpu").total_mass.device.type == "cpu"

@@ -60,7 +60,7 @@ def _port_config(horizon, qp_iters):
     kw = {} if qp_iters is None else {"qp_iters": qp_iters}
     return LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=horizon, **kw),
                             swing=swing_mod.SwingConfig(),
-                            gait=ADVANCED_TROT())
+                            gait=ADVANCED_TROT("cpu"))
 
 
 def _jax_cadenced(horizon, qp_iters):
@@ -83,8 +83,9 @@ def _jax_cadenced(horizon, qp_iters):
 
 
 def _port_cadenced(horizon, qp_iters):
-    res = rollout_cadenced(_port_config(horizon, qp_iters), a1_params(),
-                           TwistCommand.constant(vx=VX), N_PERIODS)
+    res = rollout_cadenced(_port_config(horizon, qp_iters), a1_params("cpu"),
+                           TwistCommand.constant(vx=VX, device="cpu"),
+                           N_PERIODS)
     out = {f: getattr(res.sim, f).numpy() for f in SIM_FIELDS}
     out["base_height_trace"] = res.base_height_trace.numpy()
     out["vel_trace"] = res.vel_trace.numpy()
@@ -119,7 +120,8 @@ def test_rollout_matches_jax():
     cfg = _jax_config(5, 40)
     jr = jax.jit(jax.vmap(lambda v: jro(cfg, ja1(), JTC.constant(vx=v),
                                         steps=24)))(jnp.asarray(VX))
-    r = rollout(_port_config(5, 40), a1_params(), TwistCommand.constant(vx=VX),
+    r = rollout(_port_config(5, 40), a1_params("cpu"),
+                TwistCommand.constant(vx=VX, device="cpu"),
                 steps=24)
     np.testing.assert_array_equal(r.alive.numpy(), np.asarray(jr.alive))
     np.testing.assert_allclose(r.base_height_trace.numpy(),
@@ -146,8 +148,9 @@ def test_fixture(side):
 def test_port_stable_trot():
     """Port-only stability gate (tests/test_rollout_cadenced.py's): 40
     periods at H=5, vx=0.3."""
-    res = rollout_cadenced(_port_config(5, 40), a1_params(),
-                           TwistCommand.constant(vx=0.3, body_height=0.27),
+    res = rollout_cadenced(_port_config(5, 40), a1_params("cpu"),
+                           TwistCommand.constant(vx=0.3, body_height=0.27,
+                                                 device="cpu"),
                            n_periods=40)
     assert float(res.alive[0]) == 1.0
     h = res.base_height_trace[0].numpy()
