@@ -35,7 +35,16 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      of phases 2 and 5), the kernel's time, rate and share of its bound
      (K2 also its inverse stage alone, beside `torch.linalg.inv` on the same
      M as a yardstick the port never calls), solves/s, and the first-step
-     forces of the two routes within 3% m*g of each other.
+     forces of the two routes within 3% m*g of each other;
+  8. the force-balance modes: `rollout` for B=2048 A1 scenarios in VELOCITY
+     mode (TROT, ForceBalanceConfig(): 64 whitened-ADMM iterations, 24
+     active-set polish passes, vx ~ U(0.1, 0.4)) and in POSITION mode
+     (vx ~ U(0.0, 0.1)): at least 99% alive, every state finite, ms per
+     tick and ticks/s, and over a few more ticks under torch.profiler the
+     CUDA kernels per tick and the device's busy share; no kernel of the
+     port launches in these modes (their QP is plain torch);
+  9. fixture: the 4-scenario VELOCITY and POSITION rollouts against the JAX
+     package's output checked in at tests/data/rollout_modes_a1.npz.
 The last two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
 and its operations over the peak rate of their type) and the device JSON
@@ -55,6 +64,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "rollout_cadenced_a1_h10.npz"
+MODES_FIXTURE = ROOT / "tests" / "data" / "rollout_modes_a1.npz"
 BATCH = 2048
 N_PERIODS = 18
 # Kernel vs plain: max |diff| <= ATOL + RTOL |plain| on the scaled iterates.
@@ -84,6 +94,14 @@ FULL_FORCE_ATOL, FULL_RESIDUAL, FULL_RESIDUAL_GAP = 0.5, 5e-3, 1e-4
 # would differ by ~2e-3 and fail.
 DOTS_ATOL = {"bf16": 1e-2, "f32": 1e-5}
 BENCH_BATCH = 8192
+# The force-balance rollouts (phase 8): ticks of 2 ms; the TROT cycle is
+# 0.5 s (250 ticks).
+MODE_TICKS = {"velocity": 500, "position": 250}
+PROFILE_TICKS = 3
+# Card vs the JAX modes fixture (phase 9), as tests/test_torch_locomotion_
+# modes.py: the cadenced fixture's limits, touchdown anchors 1e-3 m (the
+# velocity-mode foothold follows the base velocity over half a stance).
+MODES_FIXTURE_TOL = dict(FIXTURE_TOL, foot_anchor=1e-3)
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 on the tensor cores, float32 off them).
 PEAK_BYTES_PER_S = 3.35e12
@@ -117,6 +135,34 @@ def newton_schulz_ops(batch: int, n: int, ns_bf16: int, ns_f32: int) -> dict:
     return {"bf16": float(batch * (2 * ns_bf16 + 6 * ns_f32) * 2 * n ** 3)}
 
 
+def device_profile(fn, ticks: int, tick_ms: float) -> dict:
+    """CUDA kernels per tick and the device's busy share: fn() runs `ticks`
+    control ticks under torch.profiler; busy share = the union of the
+    kernels' device intervals per tick over `tick_ms`, the host time of a
+    tick measured without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return dict(kernels_per_tick="not measured",
+                    device_busy_share="not measured")
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return dict(kernels_per_tick=len(spans) / ticks,
+                device_us_per_tick=busy_us / ticks,
+                device_busy_share=busy_us / ticks / (1e3 * tick_ms))
+
+
 def phase(name: str, **values):
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in values.items()),
           flush=True)
@@ -128,9 +174,13 @@ def main() -> int:
                          "runs only on the card")
     from quadruped_tpu_torch.control import mpc as mpc_mod
     from quadruped_tpu_torch.control import swing as swing_mod
-    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.control.desired_state import (ControlMode,
+                                                           TwistCommand)
     from quadruped_tpu_torch.control.locomotion import LocomotionConfig
-    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.control.stance_force_balance import \
+        ForceBalanceConfig
+    from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT
+    from quadruped_tpu_torch.sim import rollout as rollout_mod
     from quadruped_tpu_torch.robots import a1_params
     from quadruped_tpu_torch.sim.rollout_cadenced import rollout_cadenced
     from quadruped_tpu_torch import bench
@@ -471,6 +521,82 @@ def main() -> int:
         if not dforce <= 0.03 * MG:
             raise RuntimeError(f"bench H={horizon}: routes differ by "
                                f"{dforce / MG:.4f} m*g")
+
+    # 8. The force-balance modes at B=2048: no kernel of the port launches.
+    def mode_config(mode):
+        return LocomotionConfig(mpc=mpc_mod.MpcConfig(),
+                                swing=swing_mod.SwingConfig(mode=mode),
+                                gait=TROT(dev), mode=mode,
+                                force_balance=ForceBalanceConfig())
+
+    rng = np.random.default_rng(0)
+    mode_cmds = {
+        "velocity": (ControlMode.VELOCITY,
+                     (0.1 + 0.3 * rng.random(BATCH)).astype(np.float32)),
+        "position": (ControlMode.POSITION,
+                     (0.1 * rng.random(BATCH)).astype(np.float32))}
+    for name, (mode, vx) in mode_cmds.items():
+        config = mode_config(mode)
+        cmd = TwistCommand.constant(vx=vx, body_height=0.27, device=dev)
+        rollout_mod.rollout(config, params, cmd, 2)     # warm-up
+        torch.cuda.synchronize()
+        ticks = MODE_TICKS[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = rollout_mod.rollout(config, params, cmd, ticks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        if any(counts.values()):
+            raise RuntimeError(f"{name} mode launched kernels: {counts}")
+        tensors = [getattr(res.sim, f) for f in res.sim.__dataclass_fields__]
+        tensors += [res.base_height_trace, res.vel_trace, res.forces_trace]
+        if not all(bool(torch.isfinite(t).all()) for t in tensors):
+            raise RuntimeError(f"non-finite state in the {name} rollout")
+        alive = res.alive.mean().item()
+        tick_ms = 1e3 * wall / ticks
+        carry = rollout_mod.RolloutCarry(sim=res.sim, ctrl=res.control,
+                                         dead=1.0 - res.alive, step=ticks)
+        prof = device_profile(lambda: rollout_mod.rollout_segment(
+            config, params, cmd, carry, PROFILE_TICKS), PROFILE_TICKS,
+            tick_ms)
+        h = res.sim.position[:, 2]
+        phase(f"{name}:B{BATCH}", ticks=ticks, sim_s=ticks * 0.002,
+              kernel_launches=json.dumps(counts), alive_fraction=alive,
+              final_height_min=h.min().item(),
+              final_height_max=h.max().item(),
+              mean_vx_last=res.vel_trace[:, -50:, 0].mean().item(),
+              wall_s=wall, ms_per_tick=tick_ms,
+              ticks_per_s=BATCH * ticks / wall, **prof, card=json.dumps(smi))
+        if alive < 0.99:
+            raise RuntimeError(f"{name}: alive fraction {alive} < 0.99")
+
+    # 9. The JAX modes fixture, on the card.
+    data = np.load(MODES_FIXTURE)
+    for name, (mode, _) in mode_cmds.items():
+        want = {k[len(name) + 1:]: data[k] for k in data.files
+                if k.startswith(name + "_")}
+        ticks, step = int(want["ticks"]), int(data["trace_stride"])
+        fres = rollout_mod.rollout(mode_config(mode), params,
+                                   TwistCommand.constant(
+                                       vx=want["vx"], body_height=0.27,
+                                       device=dev), ticks)
+        got = {k: getattr(fres.sim, k).cpu().numpy() for k in FIXTURE_TOL
+               if hasattr(fres.sim, k)}
+        got["base_height_trace"] = \
+            fres.base_height_trace[:, step - 1::step].cpu().numpy()
+        got["vel_trace"] = fres.vel_trace[:, step - 1::step].cpu().numpy()
+        if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
+            raise RuntimeError(f"fixture {name}: alive mask differs")
+        errs = {k: float(np.max(np.abs(got[k] - want[k])))
+                for k in MODES_FIXTURE_TOL}
+        bad = {k: e for k, e in errs.items()
+               if not e <= MODES_FIXTURE_TOL[k]}
+        phase(f"fixture:{name}", ticks=ticks,
+              **{k: f"{e:.3g}/{MODES_FIXTURE_TOL[k]:g}"
+                 for k, e in errs.items()})
+        if bad:
+            raise RuntimeError(f"fixture {name} mismatch: {bad}")
 
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]

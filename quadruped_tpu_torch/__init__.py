@@ -2,7 +2,7 @@
 
 The JAX package `quadruped_tpu/` is the reference; this package mirrors its
 subpackages and module names (core/, robots/, dynamics/, solvers/, gait/,
-control/, sim/) so every function's counterpart is found by path.
+control/, planner/, sim/) so every function's counterpart is found by path.
 
 Conventions of the port:
 

@@ -1,0 +1,126 @@
+"""Torch operator calls per control tick of a locomotion mode, by stage.
+
+    python quadruped_tpu_torch/benchmarks/tick_ops.py [--mode velocity]
+        [--batch 8] [--ticks 2] [--device cpu]
+
+Runs a few warm ticks of `rollout` (A1, TROT, ForceBalanceConfig() in the
+force-balance modes; ADVANCED_TROT at MpcConfig() in `advanced_trot`),
+then counts every torch operator call of `--ticks` more ticks with a
+dispatch hook, split into the views (which launch nothing) and the rest,
+and the rest by stage: the Jacobi SVD, the ADMM loop, the rest of the
+active-set polish, the rest of the force-balance stance controller, and
+the rest of the tick. Prints one JSON line. A count, not a time: it is
+the same on the CPU and on the card, except that on the card some calls
+launch more than one kernel (chip_smoke.py counts the kernels).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+
+import numpy as np
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from quadruped_tpu_torch.control import mpc as mpc_mod
+from quadruped_tpu_torch.control import stance_force_balance as stance_fb
+from quadruped_tpu_torch.control import swing as swing_mod
+from quadruped_tpu_torch.control.desired_state import ControlMode, TwistCommand
+from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+from quadruped_tpu_torch.core import linalg
+from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT
+from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.sim import rollout as rollout_mod
+from quadruped_tpu_torch.solvers import polish, qp
+from quadruped_tpu_torch.utils import card
+
+MODES = {"velocity": ControlMode.VELOCITY, "position": ControlMode.POSITION,
+         "advanced_trot": ControlMode.ADVANCED_TROT}
+# (module, function name, stage): innermost stages first in the stack.
+STAGES = [(linalg, "onesided_jacobi_svd", "jacobi_svd"),
+          (qp, "admm_solve", "admm"),
+          (polish, "solve_factored", "polish"),
+          (stance_fb, "compute_contact_forces", "stance_force_balance")]
+
+
+class _Counter(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.stage = ["tick"]
+        self.views = 0
+        self.by_stage: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.is_view:
+            self.views += 1
+        else:
+            key = self.stage[-1]
+            self.by_stage[key] = self.by_stage.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _staged(counter: _Counter):
+    """Wrap each STAGES function so that the counter knows the stage."""
+    saved = []
+    for module, name, stage in STAGES:
+        fn = getattr(module, name)
+
+        def wrapped(*a, _fn=fn, _stage=stage, **kw):
+            counter.stage.append(_stage)
+            try:
+                return _fn(*a, **kw)
+            finally:
+                counter.stage.pop()
+
+        saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def count(mode: str, batch: int, ticks: int, device) -> dict:
+    m = MODES[mode]
+    if m == ControlMode.ADVANCED_TROT:
+        config = LocomotionConfig(mpc=mpc_mod.MpcConfig(),
+                                  swing=swing_mod.SwingConfig(),
+                                  gait=ADVANCED_TROT(device))
+    else:
+        config = LocomotionConfig(mpc=mpc_mod.MpcConfig(),
+                                  swing=swing_mod.SwingConfig(mode=m),
+                                  gait=TROT(device), mode=m,
+                                  force_balance=stance_fb.ForceBalanceConfig())
+    params = a1_params(device)
+    cmd = TwistCommand.constant(vx=np.full(batch, 0.2, np.float32),
+                                body_height=0.27, device=device)
+    carry = rollout_mod.rollout_init(config, params, batch)
+    carry, _ = rollout_mod.rollout_segment(config, params, cmd, carry, 3)
+    counter = _Counter()
+    with _staged(counter), counter:
+        rollout_mod.rollout_segment(config, params, cmd, carry, ticks)
+    by_stage = {k: v / ticks for k, v in counter.by_stage.items()}
+    return {"mode": mode, "batch": batch, "device": str(device),
+            "views_per_tick": counter.views / ticks,
+            "other_calls_per_tick": sum(by_stage.values()),
+            "other_calls_by_stage": by_stage}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=list(MODES), default="velocity")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--ticks", type=int, default=2)
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda (default: the card)")
+    args = ap.parse_args(argv)
+    print(json.dumps(count(args.mode, args.batch, args.ticks,
+                           card.resolve(args.device))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,10 +1,11 @@
 """Locomotion controller tick, batched (port of quadruped_tpu/control/locomotion.py).
 
-The ADVANCED_TROT branch: gait clocks, swing controller, convex-MPC stance
-controller, and the masked merge of swing and stance commands into one
-12-joint hybrid command. Not ported yet: the force-balance modes
-(VELOCITY / POSITION / WALK), the WBC path (`use_wbc`) and online gait
-transitions (`gait_b`); each raises NotImplementedError.
+Gait clocks, swing controller, the stance controller of the mode (convex MPC
+in ADVANCED_TROT, the force-balance QP in VELOCITY and POSITION, which
+tracks the CoM adjuster's shift as well), and the masked merge of swing and
+stance commands into one 12-joint hybrid command. Not ported yet: the WALK
+mode, the WBC path (`use_wbc`) and online gait transitions (`gait_b`); each
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import torch
 
 from quadruped_tpu_torch.control import mpc as mpc_mod
+from quadruped_tpu_torch.control import stance_force_balance as stance_fb
 from quadruped_tpu_torch.control import swing as swing_mod
 from quadruped_tpu_torch.control.desired_state import (ControlMode,
                                                        DesiredStateCommand,
@@ -24,10 +26,13 @@ from quadruped_tpu_torch.control.types import HybridCommand, RobotObservation
 from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
                                                 gait_init, gait_update,
                                                 stance_contact_mask)
+from quadruped_tpu_torch.planner import com_adjuster
+from quadruped_tpu_torch.robots import kinematics
 from quadruped_tpu_torch.robots.params import RobotParams
 
 STANCE_KD = 3.0  # damping on stance joints (reference legCommand {0,0,0,3,tau})
-# Abad compensation torque per leg, +/-0.9 N*m alternating by side.
+# Abad compensation torque per leg, +/-0.9 N*m alternating by side
+# (ADVANCED_TROT only).
 _HIP_COMP = tuple(0.9 * (-1.0) ** ((leg + 1) % 2) if j == 0 else 0.0
                   for leg in range(4) for j in range(3))
 
@@ -39,13 +44,15 @@ class LocomotionConfig:
     gait: GaitConfig
     wbc: object = None
     use_wbc: bool = False
+    # ADVANCED_TROT -> convex-MPC stance; VELOCITY / POSITION ->
+    # force-balance stance (ForceBalanceConfig() when None).
     mode: int = ControlMode.ADVANCED_TROT
-    force_balance: object = None
+    force_balance: stance_fb.ForceBalanceConfig | None = None
     gait_b: GaitConfig | None = None
 
     def __post_init__(self):
-        if self.mode != ControlMode.ADVANCED_TROT:
-            raise NotImplementedError("only ADVANCED_TROT is ported")
+        if self.mode == ControlMode.WALK:
+            raise NotImplementedError("the WALK mode is not ported")
         if self.use_wbc or self.gait_b is not None:
             raise NotImplementedError("use_wbc and gait_b are not ported")
 
@@ -63,14 +70,15 @@ class LocomotionState:
 def locomotion_init(config: LocomotionConfig, params: RobotParams,
                     obs: RobotObservation,
                     cold_start: bool = True) -> LocomotionState:
-    """Initial controller state for the batch of `obs`; with `cold_start`,
-    one high-budget solve seeds the MPC warm start (mpc_cold_start)."""
+    """Initial controller state for the batch of `obs`; with `cold_start`
+    in ADVANCED_TROT, one high-budget solve seeds the MPC warm start
+    (mpc_cold_start)."""
     b = obs.base_position.shape[0]
     device = obs.base_position.device
     gait_state = gait_init(config.gait, b)
     mpc_state = mpc_mod.mpc_init(config.mpc, b, params.body_height, device)
     command = desired_state_init(b, params.body_height, device)
-    if cold_start:
+    if cold_start and config.mode == ControlMode.ADVANCED_TROT:
         mpc_state = mpc_mod.mpc_cold_start(config.mpc, params, config.gait,
                                            gait_state, mpc_state, obs,
                                            command)
@@ -94,21 +102,41 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
     stance = stance_contact_mask(gait_state)
     stance_joint_mask = torch.repeat_interleave(stance, 3, dim=-1)
 
-    tau_stance, forces_world, _, mpc_state = mpc_mod.mpc_step(
-        config.mpc, params, config.gait, gait_state, state.mpc, obs, des,
-        foot_targets_world=swing_state.foot_target_world,
-        v_preview=v_preview, z_preview=z_preview)
+    if config.mode == ControlMode.ADVANCED_TROT:
+        tau_stance, forces_world, _, mpc_state = mpc_mod.mpc_step(
+            config.mpc, params, config.gait, gait_state, state.mpc, obs, des,
+            foot_targets_world=swing_state.foot_target_world,
+            v_preview=v_preview, z_preview=z_preview)
+    else:
+        # Force-balance stance path; POSITION mode also tracks the CoM
+        # adjuster's shift.
+        fb_config = config.force_balance or stance_fb.ForceBalanceConfig()
+        des_fb = des
+        if config.mode == ControlMode.POSITION:
+            feet = kinematics.foot_positions_in_base_frame(params,
+                                                           obs.joint_angles)
+            com_shift = com_adjuster.com_position_in_base_frame(gait_state,
+                                                               feet)
+            des_fb = dataclasses.replace(des, position=torch.cat(
+                [com_shift[:, :2], des.position[:, 2:]], dim=-1))
+        forces_world = stance_fb.compute_contact_forces(
+            fb_config, params, obs, des_fb, stance)
+        tau_stance = stance_fb.stance_torques(params, obs, forces_world,
+                                              stance)
+        mpc_state = state.mpc
 
     sw = swing_mask > 0.5
     zero = torch.zeros_like(q_sw)
-    hip_comp = torch.as_tensor(_HIP_COMP, dtype=torch.float32,
-                               device=q_sw.device)
+    tau = torch.where(sw, zero, tau_stance)
+    if config.mode == ControlMode.ADVANCED_TROT:
+        tau = tau + torch.as_tensor(_HIP_COMP, dtype=torch.float32,
+                                    device=q_sw.device)
     command = HybridCommand(
         q=torch.where(sw, q_sw, zero),
         kp=torch.where(sw, params.motor_kp, zero),
         dq=torch.where(sw, dq_sw, zero),
         kd=torch.where(sw, params.motor_kd, STANCE_KD * stance_joint_mask),
-        tau=torch.where(sw, zero, tau_stance) + hip_comp,
+        tau=tau,
     )
     new_state = LocomotionState(gait=gait_state, mpc=mpc_state,
                                 swing=swing_state, command=des,

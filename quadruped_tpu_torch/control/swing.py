@@ -1,11 +1,10 @@
-"""Raibert swing-leg controller, advanced-trot foothold law (port of quadruped_tpu/control/swing.py).
+"""Raibert swing-leg controller (port of quadruped_tpu/control/swing.py).
 
-Per-leg masked arithmetic over [B, 4, 3]: lift-off latching, the
-advanced-trot heuristic foothold, the touchdown-wait probe, the swing
-curve, and IK to joint targets. The velocity-mode foothold law
-(`raibert_foothold_velocity_mode`) is not ported yet: `SwingConfig.mode`
-other than ADVANCED_TROT raises. Nor is the terrain hook
-`foothold_adjust_fn`, which only the walk and terrain planners use.
+Per-leg masked arithmetic over [B, 4, 3]: lift-off latching, the foothold
+law of the mode (the advanced-trot heuristic, or the velocity-mode Raibert
+law for every other mode), the touchdown-wait probe, the swing curve, and
+IK to joint targets. Not ported: the terrain hook `foothold_adjust_fn`,
+which only the walk and terrain planners use.
 """
 
 from __future__ import annotations
@@ -83,6 +82,31 @@ def _twisting_vector(hip_offset: torch.Tensor) -> torch.Tensor:
                         torch.zeros_like(hip_offset[..., 0])], dim=-1)
 
 
+def raibert_foothold_velocity_mode(config: SwingConfig, params: RobotParams,
+                                   gait_config: GaitConfig,
+                                   obs: RobotObservation,
+                                   des: DesiredStateCommand) -> torch.Tensor:
+    """[B, 4, 3] velocity-mode foothold targets, base frame: hip velocity *
+    stance/2 - Kp (v_target - v) under the hip, at -desired height."""
+    hip = params.default_hip_position + params.com_offset
+    twist = _twisting_vector(hip)
+    r_mat = obs.rot_body_to_world
+    v_base = torch.einsum("bi,bij->bj", obs.base_vel_world, r_mat)
+    yaw_dot = obs.base_omega_body[:, 2, None, None]
+    hip_v = v_base[:, None, :] + yaw_dot * twist
+    hip_v[..., 2] = 0.0
+    target_v = des.velocity[:, None, :] + des.omega[:, 2, None, None] * twist
+    kp = torch.as_tensor(config.swing_kp, dtype=hip.dtype, device=hip.device)
+    foothold = (hip_v * gait_config.stance_duration[:, None] * 0.5
+                - kp * (target_v - hip_v))
+    foothold = foothold + torch.stack(
+        [hip[:, 0], hip[:, 1], torch.zeros_like(hip[:, 0])], dim=-1)
+    zero = torch.zeros_like(des.position[:, 2])
+    height = torch.stack([zero, zero,
+                          des.position[:, 2] - config.foot_clearance], -1)
+    return foothold - torch.einsum("bji,bj->bi", r_mat, height)[:, None, :]
+
+
 def heuristic_foothold_advanced(config: SwingConfig, params: RobotParams,
                                 gait_config: GaitConfig,
                                 gait_state: GaitState, obs: RobotObservation,
@@ -131,9 +155,6 @@ def swing_step(config: SwingConfig, params: RobotParams,
     Returns (q_des [B, 12], dq_des [B, 12], swing_joint_mask [B, 12],
     new state).
     """
-    if config.mode != ControlMode.ADVANCED_TROT:
-        raise NotImplementedError("only the ADVANCED_TROT foothold law is "
-                                  "ported")
     r_mat = obs.rot_body_to_world
     foot_base = kinematics.foot_positions_in_base_frame(params,
                                                         obs.joint_angles)
@@ -143,8 +164,12 @@ def swing_step(config: SwingConfig, params: RobotParams,
     liftoff_base = torch.where(first, foot_base, state.liftoff_pos_base)
     liftoff_world = torch.where(first, foot_world, state.liftoff_pos_world)
 
-    target_base = heuristic_foothold_advanced(config, params, gait_config,
-                                              gait_state, obs, des)
+    if config.mode == ControlMode.ADVANCED_TROT:
+        target_base = heuristic_foothold_advanced(config, params, gait_config,
+                                                  gait_state, obs, des)
+    else:
+        target_base = raibert_foothold_velocity_mode(config, params,
+                                                     gait_config, obs, des)
     # Touchdown-wait probe: a blocked leg creeps toward the hip line in y
     # and 2 cm down, evaluated at the spline end.
     blocked = gait_state.allow_switch < 0.5

@@ -1,9 +1,11 @@
-"""Small-matrix batched SPD inverse (port of quadruped_tpu/core/linalg.py).
+"""Small-matrix batched linear algebra (port of quadruped_tpu/core/linalg.py).
 
 `inv_spd` is the JAX module's recursive block-Schur inverse on top of the
 closed-form 3x3 adjugate, with Jacobi pre-scaling, the residual guard and
-Newton refinement, ported as written: the parity tests compare against this
-arithmetic, so `torch.linalg.inv` does not stand in for it.
+Newton refinement; `onesided_jacobi_svd` is its ten-sweep one-sided Jacobi
+SVD. Both are ported as written: the parity tests compare against this
+arithmetic, so `torch.linalg.inv` and `torch.linalg.svd` do not stand in for
+them.
 """
 
 from __future__ import annotations
@@ -71,3 +73,41 @@ def _inv_spd_schur(m: torch.Tensor) -> torch.Tensor:
     top = torch.cat([tl, tr], dim=-1)
     bottom = torch.cat([tr.transpose(-1, -2), s_inv], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def onesided_jacobi_svd(a: torch.Tensor, sweeps: int = 10):
+    """Thin SVD of a tall [..., m, n] matrix (n small) by one-sided Jacobi
+    over a static pair schedule: returns (u [..., m, n], s [..., n]) with
+    a ~= u * s[..., None, :] @ v^T for some orthogonal v (not returned).
+
+    Small singular values come out to high relative accuracy, which the
+    whitened force-balance QP (solvers/polish.py) needs for its
+    sqrt(reg) ~ 1e-2 values against ~1e2. The columns are held as separate
+    tensors, so each rotation writes two new columns and nothing in place:
+    the arithmetic of the JAX module's `.at[].set` updates.
+    """
+    n = a.shape[-1]
+    cols = list(a.unbind(-1))
+    for _ in range(sweeps):
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                up, uq = cols[p], cols[q]
+                app = torch.sum(up * up, dim=-1)
+                aqq = torch.sum(uq * uq, dim=-1)
+                apq = torch.sum(up * uq, dim=-1)
+                # Rutishauser rotation zeroing the (p, q) correlation; as
+                # apq -> 0 it degrades continuously to the identity.
+                denom = 2.0 * apq
+                denom = torch.where(torch.abs(denom) < 1e-30,
+                                    torch.full_like(denom, 1e-30), denom)
+                tau = (aqq - app) / denom
+                t = torch.sign(tau) / (torch.abs(tau)
+                                       + torch.sqrt(1.0 + tau * tau))
+                t = torch.where(torch.abs(apq) < 1e-30, torch.zeros_like(t), t)
+                c = 1.0 / torch.sqrt(1.0 + t * t)
+                s = t * c
+                cols[p] = c[..., None] * up - s[..., None] * uq
+                cols[q] = s[..., None] * up + c[..., None] * uq
+    u = torch.stack(cols, dim=-1)
+    s = torch.sqrt(torch.sum(u * u, dim=-2))
+    return u / (s[..., None, :] + 1e-30), s

@@ -1,6 +1,7 @@
 """SE(3)/SO(3) math on batched torch tensors (port of quadruped_tpu/core/se3.py).
 
-Only what the advanced-trot rollout reaches is ported. Conventions match
+Only what the advanced-trot rollout and the force-balance stance controller
+reach is ported. Conventions match
 the JAX module: quaternions (w, x, y, z), RPY stored as (roll, pitch, yaw)
 with `rpy_to_rotmat(rpy) = Rz(yaw) Ry(pitch) Rx(roll)` body -> world. Every
 function broadcasts over leading axes.
@@ -114,6 +115,34 @@ def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
     pitch = torch.asin(as_)
     yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 4] (w, x, y, z)."""
+    half = rpy * 0.5
+    cr, cp, cy = (torch.cos(half[..., i]) for i in range(3))
+    sr, sp, sy = (torch.sin(half[..., i]) for i in range(3))
+    return torch.stack([cr * cp * cy + sr * sp * sy,
+                        sr * cp * cy - cr * sp * sy,
+                        cr * sp * cy + sr * cp * sy,
+                        cr * cp * sy - sr * sp * cy], dim=-1)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.as_tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                               device=q.device)
+
+
+def quat_error_so3(q_des: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Orientation error as a body-frame rotation vector:
+    log(R(q)^T R(q_des))."""
+    dq = quat_mul(quat_conj(q), q_des)
+    dq = dq * torch.where(dq[..., :1] < 0, -1.0, 1.0)
+    # For unit dq = (cos h, u sin h): log = 2 h u.
+    s = torch.linalg.vector_norm(dq[..., 1:], dim=-1, keepdim=True)
+    half = torch.atan2(s[..., 0], dq[..., 0])[..., None]
+    axis = dq[..., 1:] / torch.clamp(s, min=1e-12)
+    return torch.where(s > 1e-12, 2.0 * half * axis, torch.zeros_like(axis))
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

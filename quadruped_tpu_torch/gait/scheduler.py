@@ -70,11 +70,62 @@ def _config(stance, duty, phases, wait_time=0.3, threshold=0.5,
     )
 
 
+# Named gait tables (the reference's openloop_gait_generator.yaml; bound and
+# pace are batch-sweep tables with the standard phase offsets). Each builds
+# on the card unless `device` says otherwise.
+def TROT(device=None) -> GaitConfig:
+    return _config(0.3, 0.6, [0.5, 0.0, 0.0, 0.5], device=device)
+
+
 def ADVANCED_TROT(device=None) -> GaitConfig:
-    """The reference's advanced trot (openloop_gait_generator.yaml), on the
-    card unless `device` says otherwise."""
     return _config(0.5, 0.6, [0.5, 0.0, 0.0, 0.5], touchdown_wait=True,
                    device=device)
+
+
+def FAST_TROT(device=None) -> GaitConfig:
+    """High-speed trot, 0.4 s cycle."""
+    return _config(0.24, 0.6, [0.5, 0.0, 0.0, 0.5], device=device)
+
+
+def WALK(device=None) -> GaitConfig:
+    return _config(7.5, 0.75, [0.5, 0.0, 0.75, 0.25], threshold=0.1,
+                   device=device)
+
+
+def STAND(device=None) -> GaitConfig:
+    return _config(0.3, 1.0, [0.0, 0.0, 0.0, 0.0], threshold=0.1,
+                   device=device)
+
+
+def BOUND(device=None) -> GaitConfig:
+    return _config(0.25, 0.55, [0.0, 0.0, 0.5, 0.5], device=device)
+
+
+def PACE(device=None) -> GaitConfig:
+    return _config(0.3, 0.6, [0.0, 0.5, 0.0, 0.5], device=device)
+
+
+def THREESTAND(device=None) -> GaitConfig:
+    """Three-legged stand: RR is held in USERDEFINED_SWING, the others
+    stand."""
+    cfg = STAND(device)
+    duty = cfg.duty_factor.clone()
+    duty[2] = 1e-6
+    stance = cfg.stance_duration.clone()
+    stance[2] = 0.0
+    initial = cfg.initial_leg_state.clone()
+    initial[2] = LegState.USERDEFINED_SWING
+    return dataclasses.replace(cfg, duty_factor=duty, stance_duration=stance,
+                               initial_leg_state=initial)
+
+
+_NAMED = {"trot": TROT, "advanced_trot": ADVANCED_TROT,
+          "fast_trot": FAST_TROT, "walk": WALK, "stand": STAND,
+          "bound": BOUND, "pace": PACE, "threestand": THREESTAND}
+
+
+def named_gait(name: str, device=None) -> GaitConfig:
+    return _NAMED[name](device)
 
 
 @dataclasses.dataclass

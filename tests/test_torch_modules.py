@@ -376,6 +376,24 @@ def _compare(got, want, tol, path="out"):
                                **{"rtol": 1e-5, "atol": 1e-5, **tol})
 
 
+@pytest.mark.parametrize("name", ["trot", "advanced_trot", "fast_trot",
+                                  "walk", "stand", "bound", "pace",
+                                  "threestand"])
+def test_named_gait_tables(name):
+    """Every named gait table, field by field and exactly, and its derived
+    periods."""
+    ref = j_sched.named_gait(name)
+    port = t_sched.named_gait(name, "cpu")
+    for key, value in as_numpy(ref).items():
+        got = getattr(port, key)
+        assert got.numpy().dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(got.numpy(), value, err_msg=key)
+    for prop in ("full_cycle_period", "swing_duration", "stance_ratio"):
+        np.testing.assert_array_equal(getattr(port, prop).numpy(),
+                                      np.asarray(getattr(ref, prop)),
+                                      err_msg=prop)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_module_parity(name):
     pairs, tol = CASES[name]()

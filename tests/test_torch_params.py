@@ -37,6 +37,24 @@ def test_a1_params_equal_jax():
         assert torch.equal(getattr(converted, f.name), getattr(port, f.name))
 
 
+@pytest.mark.parametrize("name", ["go1", "aliengo", "lite3", "lite2"])
+def test_named_params_equal_jax(name):
+    """The other robots, field by field and exactly, through named_params
+    and through each robot's own factory."""
+    from quadruped_tpu.robots import named_params as j_named
+    from quadruped_tpu_torch.robots import params as t_params
+
+    ref = j_named(name)
+    for port in (t_params.named_params(name, "cpu"),
+                 getattr(t_params, f"{name}_params")("cpu")):
+        for f in dataclasses.fields(RobotParams):
+            got = getattr(port, f.name)
+            assert got.dtype == torch.float32, f.name
+            np.testing.assert_array_equal(got.numpy(),
+                                          np.asarray(getattr(ref, f.name)),
+                                          err_msg=f"{name}.{f.name}")
+
+
 def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -86,7 +104,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from quadruped_tpu_torch import bench
     from quadruped_tpu_torch.benchmarks import mxu_rate
     from quadruped_tpu_torch.control.desired_state import TwistCommand
-    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT, named_gait
+    from quadruped_tpu_torch.robots import named_params
     from quadruped_tpu_torch.solvers.problems import bench_problems
     from quadruped_tpu_torch.utils import card
 
@@ -95,7 +114,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert card.resolve() == torch.device("cuda")
     assert card.resolve("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    constructors = [a1_params, ADVANCED_TROT,
+    constructors = [a1_params, ADVANCED_TROT, TROT,
+                lambda: named_gait("walk"), lambda: named_params("go1"),
                 lambda: TwistCommand.constant(vx=0.3),
                 lambda: bench_problems(2, horizon=2),
                 lambda: bench.build_bench(2, "loop", 10),
