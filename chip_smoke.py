@@ -26,7 +26,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      times of both, the inverse stage alone (a launch with iters=0), the
      achieved TFLOP/s of that stage and the kernel's share of its bound;
   6. unrolled_dots vs plain: the chained-product kernel against its plain
-     version, bf16 and float32, B=1024, 10 products, then the benchmark
+     version, bf16 and float32, B=1024, 10 products, in max and mean
+     (`mxu_rate.accuracy`: beside it both chains against the chain summed
+     in float64, a control that must fail the limits, and float32 against
+     `mxu_rate.tf32_chain`, its three TF32 passes in torch ops), the
+     kernel's load and store alone (no product), then the benchmark
      `mxu_rate.measure` through it;
   7. the MPC-update benchmark: `bench.build_bench` at B=8192 for H=10 and
      H=16 through the routes `loop` (fused_admm) and `full`
@@ -86,13 +90,21 @@ MG = 13.0 * 9.81
 # max|I - MX| below 5e-3 for both (one polish step leaves ~1e-3 on the
 # hardest of 2048 problems) and within 1e-4 of each other.
 FULL_FORCE_ATOL, FULL_RESIDUAL, FULL_RESIDUAL_GAP = 0.5, 5e-3, 1e-4
-# unrolled_dots vs plain: after normalisation the entries are <= 1; the
-# same exact float32 products summed in another order, 10 times chained.
-# float32 as on the CPU (tests/test_torch_mxu_rate.py); bf16 data is cast
-# back to bf16 after every product, so a sum near a rounding tie may land
-# one bf16 step (2^-8) away and carry on. An f32 chain that rounded to bf16
-# would differ by ~2e-3 and fail.
-DOTS_ATOL = {"bf16": 1e-2, "f32": 1e-5}
+# unrolled_dots vs plain: (max, mean) |diff| after 10 chained products;
+# after normalisation the entries are <= 1. The kernel is held within them
+# against the plain version (exact products, IEEE float32 sums) and against
+# the chain summed in float64; a control must fail them, or they have no
+# teeth. bf16: summing the same exact products in another order moves a
+# sum near a rounding tie one bf16 step (2^-8) and it carries, so the max
+# alone cannot tell a sound kernel (0.0117 from plain) from one whose store
+# truncates (the control, `mxu_rate.truncated_chain`: max 0.0117 at B=16 on
+# the CPU); the mean can (CPU B=16: plain vs float64 2.3e-5, the control
+# 1.2e-3). float32: the three TF32 passes against exact float32, the
+# control one TF32 pass (~1e-3 away); against its own arithmetic in torch
+# ops (`tf32_chain`) the tensor cores' summation order is the only
+# difference (measured 3.5e-6).
+DOTS_TOL = {"bf16": (2e-2, 2e-4), "f32": (1e-5, 1e-6)}
+DOTS_3PASS_ATOL = 5e-6
 BENCH_BATCH = 8192
 # The force-balance rollouts (phase 8): ticks of 2 ms; the TROT cycle is
 # 0.5 s (250 ticks).
@@ -103,9 +115,10 @@ PROFILE_TICKS = 3
 # velocity-mode foothold follows the base velocity over half a stance).
 MODES_FIXTURE_TOL = dict(FIXTURE_TOL, foot_anchor=1e-3)
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
-# and operations/s by type (bf16 on the tensor cores, float32 off them).
+# and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
+# them).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def bound(bytes_moved: float, ops: dict) -> tuple[float, str]:
@@ -301,11 +314,12 @@ def main() -> int:
     built = cuda_build.build_shared_libraries(
         [(src, name) for name, src in sources.items()])
     seconds = time.perf_counter() - t0
-    # Dynamic shared memory a block takes (K3: two 128 x 129 float32
-    # matrices).
+    # Dynamic shared memory a block takes (K3: bf16 / float32, as its
+    # library gives them).
     dyn_smem = {"fused_admm": 4 * fused_admm.VECTOR_FLOATS,
                 "fused_full_solve": fused_full_solve.SMEM_BYTES,
-                "unrolled_dots": 2 * 128 * 129 * 4}
+                "unrolled_dots": "/".join(
+                    str(mxu_rate.smem_bytes(t)) for t in mxu_rate.DTYPES)}
     for name, (_, log) in zip(sources, built):
         ptxas = [ln.split("ptxas info    :")[-1].strip()
                  for ln in log.splitlines()
@@ -428,25 +442,42 @@ def main() -> int:
                   iters=kw["iters"], **held, tol=full_tol, kernel_ms=ms,
                   plain_ms=plain_ms, **rates)
 
-    # 6. unrolled_dots vs plain, then the benchmark through the kernel.
-    dots_err = {}
-    for tag, dtype in mxu_rate.DTYPES.items():
-        m = mxu_rate.problems(1024, dtype, dev)
-        got = mxu_rate.unrolled_dots(m, 10).float()
-        want = mxu_rate.unrolled_dots_reference(m, 10).float()
-        torch.cuda.synchronize()
-        dots_err[tag] = (got - want).abs().max().item()
-        if not dots_err[tag] <= DOTS_ATOL[tag]:
-            raise RuntimeError(f"unrolled_dots vs plain ({tag}): "
-                               f"{dots_err[tag]} > {DOTS_ATOL[tag]}")
+    # 6. unrolled_dots vs plain (with the readings that set its limits),
+    # its load and store alone, then the benchmark through the kernel.
+    dots_acc = mxu_rate.accuracy(1024, 10, dev)
+    dots_held = {}
+    for tag, acc in dots_acc.items():
+        limits = DOTS_TOL[tag]
+        for key in ("kernel_vs_plain", "kernel_vs_f64"):
+            err, mean = acc[key]
+            if not (err <= limits[0] and mean <= limits[1]):
+                raise RuntimeError(f"unrolled_dots {key} ({tag}): max {err}, "
+                                   f"mean {mean}; limits {limits}")
+        control = acc["control_vs_plain"]
+        if control[0] <= limits[0] and control[1] <= limits[1]:
+            raise RuntimeError(f"unrolled_dots ({tag}): the control "
+                               f"{control} passes the limits {limits}")
+        if tag == "f32" and not acc["kernel_vs_3pass"][0] <= DOTS_3PASS_ATOL:
+            raise RuntimeError(f"unrolled_dots vs tf32_chain: "
+                               f"{acc['kernel_vs_3pass'][0]} > "
+                               f"{DOTS_3PASS_ATOL}")
+        m = mxu_rate.problems(1024, mxu_rate.DTYPES[tag], dev)
+        dots_held[tag] = dict(
+            {k: "/".join(map(str, v)) for k, v in acc.items()},
+            tol="/".join(map(str, limits)),
+            kernel_ms_load_only=card.time_ms(
+                lambda: mxu_rate.unrolled_dots(m, 0), 10))
+        if tag == "f32":
+            dots_held[tag]["tol_3pass"] = DOTS_3PASS_ATOL
     reset_counts()
     rate = mxu_rate.measure(1024, 10, reps=10, device=dev)
     dots_launches = counts_after("mxu_rate.measure", "unrolled_dots")
     for tag, versions in rate.items():
-        phase(f"dots:{tag}", batch=1024, iters=10, max_abs_err=dots_err[tag],
-              tol=DOTS_ATOL[tag], launches=dots_launches,
+        phase(f"dots:{tag}", batch=1024, iters=10, **dots_held[tag],
+              launches=dots_launches,
               **{f"{name}_{key}": value for name, (ms, tf) in versions.items()
-                 for key, value in (("ms", ms), ("tflops", tf))})
+                 for key, value in (("ms", ms), ("tflops", tf))},
+              card=json.dumps(smi))
 
     # 7. The MPC-update benchmark: one counted update per route, its kernel
     # against the plain version on that update's operands, then its rate.
@@ -601,10 +632,14 @@ def main() -> int:
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
+    # K3's bounds: M read and x written once; bf16 products on the tensor
+    # cores; float32 as the kernel takes it, three TF32 passes, and (for the
+    # record) one pass on the CUDA cores.
     dots_bytes = 2.0 * 1024 * 128 * 128 * 2
     dots_ops = 2.0 * 128 ** 3 * 1024 * 10
     dots_bound, dots_by = bound(dots_bytes, {"bf16": dots_ops})
-    dots_bound_f32, _ = bound(2 * dots_bytes, {"f32": dots_ops})
+    dots_bound_f32, dots_by_f32 = bound(2 * dots_bytes, {"tf32": 3 * dots_ops})
+    dots_bound_f32_cuda_cores, _ = bound(2 * dots_bytes, {"f32": dots_ops})
     print(json.dumps({"kernels": [{
         "name": "fused_admm", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/fused_admm.cu",
@@ -640,14 +675,19 @@ def main() -> int:
         "name": "unrolled_dots", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/unrolled_dots.cu",
         "replaces": "benchmarks/exp_mxu_rate.py:81",
-        "launches": dots_launches, "max_abs_err": max(dots_err.values()),
+        "launches": dots_launches,
+        "max_abs_err": dots_acc["bf16"]["kernel_vs_plain"][0],
+        "max_abs_err_f32": dots_acc["f32"]["kernel_vs_plain"][0],
         "ms": rate["bf16"]["kernel"][0], "plain_ms": rate["bf16"]["plain"][0],
         "bound_ms": dots_bound, "bound_by": dots_by,
         "library_ms": rate["bf16"]["matmul"][0],
+        "tflops": rate["bf16"]["kernel"][1],
         "ms_f32": rate["f32"]["kernel"][0],
         "plain_ms_f32": rate["f32"]["plain"][0],
-        "bound_ms_f32": dots_bound_f32,
+        "bound_ms_f32": dots_bound_f32, "bound_by_f32": dots_by_f32,
+        "bound_ms_f32_cuda_cores": dots_bound_f32_cuda_cores,
         "library_ms_f32": rate["f32"]["matmul"][0],
+        "tflops_f32": rate["f32"]["kernel"][1],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
