@@ -12,7 +12,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      version on B=2048 H=10 MPC problems (the JAX solver benchmark's state
      and trot-table distribution), in the 400-iteration relaxed boot scheme
      and the 24-iteration warm Fast-ADMM scheme, with times of both, the
-     kernel's achieved GB/s and its share of its bound;
+     kernel's achieved GB/s and its share of its bound; and on the boot
+     solve the closed loop runs at unblocked H=16 (n = 192, 400 relaxed
+     iterations, B=2048 standing robots, `problems.boot_problems`), held on
+     the unscaled first-step forces within 1% m*g;
   3. the closed loop: `rollout_cadenced` for B=2048 A1 scenarios at the
      production MPC configuration, 18 MPC periods, commands
      vx ~ U(0.2, 0.8), wz ~ N(0, 0.2); fused_admm must be launched once per
@@ -48,7 +51,29 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      CUDA kernels per tick and the device's busy share; no kernel of the
      port launches in these modes (their QP is plain torch);
   9. fixture: the 4-scenario VELOCITY and POSITION rollouts against the JAX
-     package's output checked in at tests/data/rollout_modes_a1.npz.
+     package's output checked in at tests/data/rollout_modes_a1.npz;
+ 10. the WBC: `wbc_step` on B=1024 states of the twin of the JAX
+     benchmarks/bench_wbc.py (ms per tick, CUDA kernels per tick and the
+     device's busy share; no kernel of the port launches, its QP is plain
+     torch), then `rollout` with use_wbc at B=1024 (A1, ADVANCED_TROT,
+     `MpcConfig(horizon=10)`, `WbcConfig()`, 400 ticks, vx ~ U(0.2, 0.6)):
+     fused_admm launched once per MPC solve (1 boot + 50), the WBC called on
+     its 150 ticks (every 2nd, never on a solve tick), at least 99% alive,
+     every state finite, ms per tick, ticks/s, kernels per tick and busy
+     share;
+ 11. the whole-body closed loop (the twin of the JAX
+     benchmarks/bench_whole_body.py): B=1024, 500 ticks, fused_admm once per
+     solve (1 boot + 63), at least 99% alive and every alive scenario's
+     final height in [0.2, 0.35] m, ticks/s and simulator instances
+     replaced (ticks/s / 500), kernels per tick and busy share; then the
+     cross-simulator check (the twin of the JAX
+     test_whole_body_trot_matches_srb) at B=64: the SRB `rollout` and the
+     whole-body loop at `MpcConfig(horizon=5, qp_iters=24,
+     qp_cold_iters=120)`, vx = 0.25, 1000 ticks, agreeing over ticks
+     400-1000 on mean height within 3 cm and mean vx within 0.15 m/s;
+ 12. fixtures: the 4-scenario use_wbc rollout and the WBC outputs of the
+     B=8 benchmark states against tests/data/rollout_wbc_a1.npz, the
+     4-scenario whole-body loop against tests/data/whole_body_a1.npz.
 The last two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
 and its operations over the peak rate of their type) and the device JSON
@@ -69,6 +94,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "rollout_cadenced_a1_h10.npz"
 MODES_FIXTURE = ROOT / "tests" / "data" / "rollout_modes_a1.npz"
+WBC_FIXTURE = ROOT / "tests" / "data" / "rollout_wbc_a1.npz"
+WB_FIXTURE = ROOT / "tests" / "data" / "whole_body_a1.npz"
 BATCH = 2048
 N_PERIODS = 18
 # Kernel vs plain: max |diff| <= ATOL + RTOL |plain| on the scaled iterates.
@@ -114,6 +141,21 @@ PROFILE_TICKS = 3
 # modes.py: the cadenced fixture's limits, touchdown anchors 1e-3 m (the
 # velocity-mode foothold follows the base velocity over half a stance).
 MODES_FIXTURE_TOL = dict(FIXTURE_TOL, foot_anchor=1e-3)
+# The WBC and whole-body paths (phases 10-12): B, ticks, and the ticks
+# profiled (one MPC cadence cycle of 8 ticks: 1 solve, 3 WBC ticks).
+WB_BATCH = 1024
+WBC_TICKS = 400
+WB_TICKS = 500
+CYCLE_TICKS = 8
+CROSS_BATCH, CROSS_TICKS = 64, 1000
+# Card vs the JAX fixtures, the limits of tests/test_torch_wbc.py and
+# tests/test_torch_whole_body.py (each with the CPU reading there).
+WBC_FIXTURE_TOL = dict(FIXTURE_TOL, foot_anchor=1e-4,
+                       forces_trace=0.01 * 13.0 * 9.81, tau_trace=0.3)
+WBC_TICK_TOL = {"q_des": 1e-4, "dq_des": 5e-4, "tau": 2e-3}
+WB_FIXTURE_TOL = {"quat": 4e-3, "position": 2e-3, "omega_body": 0.1,
+                  "vel_body": 3e-2, "q": 4e-2, "height_trace": 5e-4,
+                  "vx_trace": 2e-2}
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -200,7 +242,11 @@ def main() -> int:
     from quadruped_tpu_torch.benchmarks import mxu_rate
     from quadruped_tpu_torch.solvers import (cone_qp, fused_admm,
                                              fused_full_solve)
+    from quadruped_tpu_torch.solvers import problems
     from quadruped_tpu_torch.solvers.problems import bench_problems
+    from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
+    from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
+    from quadruped_tpu_torch.control import wbc as wbc_mod
     from quadruped_tpu_torch.utils import card, cuda_build
 
     wrappers = {"fused_admm": fused_admm.fused_admm,
@@ -292,6 +338,16 @@ def main() -> int:
                     inverse_tflops=ns["bf16"] / inv_ms / 1e9,
                     bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms)
 
+    def hold(name: str, got: dict, want: dict, tol: dict, **extra):
+        """max |got - want| per key of `tol`, printed beside its limit on
+        the line `name`; raises if any is over its limit."""
+        errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in tol}
+        phase(name, **extra,
+              **{k: f"{e:.3g}/{tol[k]:g}" for k, e in errs.items()})
+        bad = {k: e for k, e in errs.items() if not e <= tol[k]}
+        if bad:
+            raise RuntimeError(f"{name} mismatch: {bad}")
+
     full_tol = (f"forces {FULL_FORCE_ATOL} N, residual < {FULL_RESIDUAL}, "
                 f"gap <= {FULL_RESIDUAL_GAP}")
     admm_tol = f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}"
@@ -357,6 +413,37 @@ def main() -> int:
               achieved_GBps=nbytes / ms / 1e6, bound_ms=b_ms, bound_by=b_by,
               share_of_bound=b_ms / ms)
 
+    # The boot solve at unblocked H=16 (n = 192), held on its unscaled
+    # first-step forces (the scaled iterates part past the limits above
+    # over 400 relaxed iterations at this size).
+    prob, x0, boot_cfg = problems.boot_problems(BATCH, horizon=16,
+                                                device=dev)
+    inp = cone_qp.admm_inputs(prob, x0=x0,
+                              y0=torch.zeros(BATCH, 64, 5, device=dev))
+    args = inp[:8]
+    kw = dict(iters=boot_cfg.qp_cold_iters, sigma=cone_qp.SIGMA,
+              alpha=boot_cfg.qp_cold_alpha, accel_restart=0)
+    xk, yk = fused_admm.fused_admm(*args, **kw)
+    xr, _ = fused_admm.fused_admm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(xk).all() and torch.isfinite(yk).all()):
+        raise RuntimeError("fused_admm output not finite (boot, n = 192)")
+    dforce = ((xk - xr) * inp.d)[:, :12].abs().max().item()
+    ms = card.time_ms(lambda: fused_admm.fused_admm(*args, **kw), 10)
+    plain_ms = card.time_ms(
+        lambda: fused_admm.fused_admm_reference(*args, **kw), 3)
+    nbytes, ops = admm_work(BATCH, args[1].shape[1], kw["iters"])
+    b_ms, b_by = bound(nbytes, ops)
+    timing["boot_n192"] = (ms, plain_ms, b_ms, b_by, dforce)
+    phase("kernel_vs_plain:boot_n192", batch=BATCH, n=args[1].shape[1],
+          iters=kw["iters"], max_abs_dforce_N=dforce,
+          max_abs_dforce_mg=dforce / MG, tol="0.01 m*g", kernel_ms=ms,
+          plain_ms=plain_ms, achieved_GBps=nbytes / ms / 1e6, bound_ms=b_ms,
+          bound_by=b_by, share_of_bound=b_ms / ms)
+    if not dforce <= 0.01 * MG:
+        raise RuntimeError(f"fused_admm vs plain (boot, n = 192): first-step "
+                           f"forces differ by {dforce} N > 1% m*g")
+
     # 3. The slice: rollout_cadenced at B=2048 through the kernel.
     config = LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=10),
                               swing=swing_mod.SwingConfig(),
@@ -402,12 +489,7 @@ def main() -> int:
     got["vel_trace"] = fres.vel_trace.cpu().numpy()
     if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
         raise RuntimeError("fixture: alive mask differs")
-    errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in FIXTURE_TOL}
-    bad = {k: e for k, e in errs.items() if not e <= FIXTURE_TOL[k]}
-    phase("fixture", **{k: f"{e:.3g}/{FIXTURE_TOL[k]:g}"
-                        for k, e in errs.items()})
-    if bad:
-        raise RuntimeError(f"fixture mismatch: {bad}")
+    hold("fixture", got, want, FIXTURE_TOL)
 
     # 5. fused_full_solve vs plain at B=2048, n=120.
     full_timing, full_err = {}, 0.0
@@ -619,15 +701,180 @@ def main() -> int:
         got["vel_trace"] = fres.vel_trace[:, step - 1::step].cpu().numpy()
         if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
             raise RuntimeError(f"fixture {name}: alive mask differs")
-        errs = {k: float(np.max(np.abs(got[k] - want[k])))
-                for k in MODES_FIXTURE_TOL}
-        bad = {k: e for k, e in errs.items()
-               if not e <= MODES_FIXTURE_TOL[k]}
-        phase(f"fixture:{name}", ticks=ticks,
-              **{k: f"{e:.3g}/{MODES_FIXTURE_TOL[k]:g}"
-                 for k, e in errs.items()})
-        if bad:
-            raise RuntimeError(f"fixture {name} mismatch: {bad}")
+        hold(f"fixture:{name}", got, want, MODES_FIXTURE_TOL, ticks=ticks)
+
+    # 10. The WBC: one batched tick on the benchmark states, then the
+    # use_wbc closed loop.
+    step, wbc_args = bench_wbc.build(WB_BATCH, dev)
+    step(*wbc_args)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step(*wbc_args)
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / 10
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if any(counts.values()):
+        raise RuntimeError(f"wbc_step launched kernels: {counts}")
+    prof = device_profile(lambda: [step(*wbc_args) for _ in range(3)], 3,
+                          tick_ms)
+    if not all(bool(torch.isfinite(o).all()) for o in step(*wbc_args)):
+        raise RuntimeError("wbc_step: not finite")
+    phase(f"wbc_tick:B{WB_BATCH}", ms_per_tick=tick_ms,
+          ticks_per_s=WB_BATCH / tick_ms * 1e3,
+          kernel_launches=json.dumps(counts), **prof, card=json.dumps(smi))
+
+    wbc_calls = [0]
+    wbc_step = wbc_mod.wbc_step
+
+    def counted_wbc(*a, **k):
+        wbc_calls[0] += 1
+        return wbc_step(*a, **k)
+
+    wbc_config = LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=10),
+                                  swing=swing_mod.SwingConfig(),
+                                  gait=ADVANCED_TROT(dev),
+                                  wbc=wbc_mod.WbcConfig(), use_wbc=True)
+    rng = np.random.default_rng(0)
+    cmd = TwistCommand.constant(
+        vx=(0.2 + 0.4 * rng.random(WB_BATCH)).astype(np.float32),
+        body_height=0.27, device=dev)
+    rollout_mod.rollout(wbc_config, params, cmd, 4)     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    wbc_mod.wbc_step = counted_wbc
+    try:
+        t0 = time.perf_counter()
+        res = rollout_mod.rollout(wbc_config, params, cmd, WBC_TICKS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        wbc_mod.wbc_step = wbc_step
+    solves = -(-WBC_TICKS // CYCLE_TICKS)
+    launches_wbc = counts_after("wbc_rollout", "fused_admm", 1 + solves)
+    expected_wbc = sum(1 for i in range(WBC_TICKS)
+                       if i % 2 == 0 and i % CYCLE_TICKS)
+    if wbc_calls[0] != expected_wbc:
+        raise RuntimeError(f"wbc_rollout: the WBC ran {wbc_calls[0]} times, "
+                           f"expected {expected_wbc}")
+    tensors = [getattr(res.sim, f) for f in res.sim.__dataclass_fields__]
+    tensors += [res.base_height_trace, res.vel_trace, res.forces_trace,
+                res.tau_trace]
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise RuntimeError("non-finite state in the use_wbc rollout")
+    alive = res.alive.mean().item()
+    tick_ms = 1e3 * wall / WBC_TICKS
+    carry = rollout_mod.RolloutCarry(sim=res.sim, ctrl=res.control,
+                                     dead=1.0 - res.alive, step=WBC_TICKS)
+    prof = device_profile(lambda: rollout_mod.rollout_segment(
+        wbc_config, params, cmd, carry, CYCLE_TICKS), CYCLE_TICKS, tick_ms)
+    h = res.sim.position[:, 2]
+    phase(f"wbc_rollout:B{WB_BATCH}", ticks=WBC_TICKS,
+          kernel_launches=launches_wbc, wbc_calls=wbc_calls[0],
+          alive_fraction=alive, final_height_min=h.min().item(),
+          final_height_max=h.max().item(),
+          mean_vx_last=res.vel_trace[:, -100:, 0].mean().item(),
+          wall_s=wall, ms_per_tick=tick_ms,
+          ticks_per_s=WB_BATCH * WBC_TICKS / wall, **prof,
+          card=json.dumps(smi))
+    if alive < 0.99:
+        raise RuntimeError(f"wbc_rollout: alive fraction {alive} < 0.99")
+
+    # 11. The whole-body closed loop, then the cross-simulator check.
+    bench_wb.run(bench_wb.build(WB_BATCH, dev), 2)       # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    loop = bench_wb.build(WB_BATCH, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop, _ = bench_wb.run(loop, WB_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_wb = counts_after("whole_body", "fused_admm",
+                               1 + -(-WB_TICKS // CYCLE_TICKS))
+    s = loop.sim.fb
+    if not all(bool(torch.isfinite(getattr(s, f)).all())
+               for f in s.__dataclass_fields__):
+        raise RuntimeError("non-finite state in the whole-body loop")
+    alive_mask = bench_wb.alive(loop) > 0.5
+    alive = alive_mask.float().mean().item()
+    h = s.position[alive_mask, 2]
+    tick_ms = 1e3 * wall / WB_TICKS
+    wb_rate = WB_BATCH * WB_TICKS / wall
+    prof = device_profile(lambda: bench_wb.run(loop, CYCLE_TICKS),
+                          CYCLE_TICKS, tick_ms)
+    phase(f"whole_body:B{WB_BATCH}", ticks=WB_TICKS,
+          kernel_launches=launches_wb, alive_fraction=alive,
+          final_height_min=h.min().item(), final_height_max=h.max().item(),
+          wall_s=wall, ms_per_tick=tick_ms, ticks_per_s=wb_rate,
+          gazebo_equivalents=wb_rate / 500.0, **prof, card=json.dumps(smi))
+    if alive < 0.99 or not (0.2 <= h.min().item()
+                            and h.max().item() <= 0.35):
+        raise RuntimeError(f"whole_body: alive {alive}, final heights "
+                           f"{h.min().item()}-{h.max().item()}")
+
+    cross_config = LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev))
+    srb = rollout_mod.rollout(cross_config, params, TwistCommand.constant(
+        vx=0.25, body_height=0.27, batch=CROSS_BATCH, device=dev),
+        CROSS_TICKS)
+    loop = bench_wb.build(CROSS_BATCH, dev, cross_config,
+                          np.full(CROSS_BATCH, 0.25))
+    _, (h_wb, vx_wb) = bench_wb.run(loop, CROSS_TICKS)
+    win = slice(400, CROSS_TICKS)
+    dh = (h_wb[:, win].mean(1)
+          - srb.base_height_trace[:, win].mean(1)).abs().max().item()
+    dvx = (vx_wb[:, win].mean(1)
+           - srb.vel_trace[:, win, 0].mean(1)).abs().max().item()
+    phase(f"whole_body:cross_srb:B{CROSS_BATCH}", ticks=CROSS_TICKS,
+          srb_alive=srb.alive.mean().item(),
+          mean_height_wb=h_wb[:, win].mean().item(),
+          mean_height_srb=srb.base_height_trace[:, win].mean().item(),
+          max_abs_dheight=dh, max_abs_dvx=dvx, tol="0.03 m / 0.15 m/s")
+    if not (torch.isfinite(h_wb).all() and srb.alive.min().item() == 1.0
+            and dh < 0.03 and dvx < 0.15):
+        raise RuntimeError(f"cross-simulator check: height {dh}, vx {dvx}")
+
+    # 12. The JAX fixtures of the WBC and the whole-body loop, on the card.
+    data = dict(np.load(WBC_FIXTURE))
+    fres = rollout_mod.rollout(LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=40),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev),
+        wbc=wbc_mod.WbcConfig(), use_wbc=True), params,
+        TwistCommand.constant(vx=data["vx"], body_height=0.27, device=dev),
+        int(data["ticks"]))
+    stride = int(data["trace_stride"])
+    got = {k: getattr(fres.sim, k).cpu().numpy() for k in WBC_FIXTURE_TOL
+           if hasattr(fres.sim, k)}
+    for k in ("base_height_trace", "vel_trace"):
+        got[k] = getattr(fres, k)[:, stride - 1::stride].cpu().numpy()
+    got["forces_trace"] = fres.forces_trace.cpu().numpy()
+    got["tau_trace"] = fres.tau_trace.cpu().numpy()
+    if not np.array_equal(fres.alive.cpu().numpy(), data["alive"]):
+        raise RuntimeError("fixture wbc_rollout: alive mask differs")
+    hold("fixture:wbc_rollout", got, data, WBC_FIXTURE_TOL,
+         ticks=int(data["ticks"]))
+
+    step, wbc_args = bench_wbc.build(8, dev)
+    outs = {k: o.cpu().numpy() for k, o in
+            zip(("q_des", "dq_des", "tau"), step(*wbc_args))}
+    hold("fixture:wbc_tick", outs,
+         {k: data[f"wbc_tick_{k}"] for k in WBC_TICK_TOL}, WBC_TICK_TOL,
+         batch=8)
+
+    data = dict(np.load(WB_FIXTURE))
+    loop = bench_wb.build(len(data["vx"]), dev, LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev)), data["vx"])
+    loop, (h_wb, vx_wb) = bench_wb.run(loop, int(data["ticks"]))
+    got = {k: getattr(loop.sim.fb, k).cpu().numpy() for k in WB_FIXTURE_TOL
+           if hasattr(loop.sim.fb, k)}
+    got["height_trace"] = h_wb.cpu().numpy()
+    got["vx_trace"] = vx_wb.cpu().numpy()
+    hold("fixture:whole_body", got, data, WB_FIXTURE_TOL,
+         ticks=int(data["ticks"]))
 
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
@@ -651,6 +898,13 @@ def main() -> int:
         "ms_cold": timing["cold"][0], "plain_ms_cold": timing["cold"][1],
         "bound_ms_cold": timing["cold"][2],
         "launches_bench": bench_launches["fused_admm"],
+        "launches_wbc_rollout": launches_wbc,
+        "launches_whole_body": launches_wb,
+        "ms_boot_n192": timing["boot_n192"][0],
+        "plain_ms_boot_n192": timing["boot_n192"][1],
+        "bound_ms_boot_n192": timing["boot_n192"][2],
+        "bound_by_boot_n192": timing["boot_n192"][3],
+        "max_abs_dforce_boot_n192_N": timing["boot_n192"][4],
         "ms_bench": loop_bench[0], "plain_ms_bench": loop_bench[1],
         "bound_ms_bench": loop_bench[2]["bound_ms"],
     }, {

@@ -3,15 +3,20 @@
     python quadruped_tpu_torch/benchmarks/tick_ops.py [--mode velocity]
         [--batch 8] [--ticks 2] [--device cpu]
 
-Runs a few warm ticks of `rollout` (A1, TROT, ForceBalanceConfig() in the
-force-balance modes; ADVANCED_TROT at MpcConfig() in `advanced_trot`),
-then counts every torch operator call of `--ticks` more ticks with a
-dispatch hook, split into the views (which launch nothing) and the rest,
-and the rest by stage: the Jacobi SVD, the ADMM loop, the rest of the
-active-set polish, the rest of the force-balance stance controller, and
-the rest of the tick. Prints one JSON line. A count, not a time: it is
-the same on the CPU and on the card, except that on the card some calls
-launch more than one kernel (chip_smoke.py counts the kernels).
+Runs a few warm ticks of the mode, then counts every torch operator call
+of `--ticks` more ticks with a dispatch hook, split into the views (which
+launch nothing) and the rest, and the rest by stage (the innermost of the
+STAGES functions on the stack; `fused_admm` is the ADMM loop that is one
+kernel launch on the card). Modes: `rollout` of the A1 in VELOCITY /
+POSITION (TROT, ForceBalanceConfig()), ADVANCED_TROT at MpcConfig()
+(`advanced_trot`) and the same with the WBC (`wbc`, use_wbc=True); the
+whole-body closed loop of benchmarks/whole_body.py (`whole_body`); and one
+`wbc_step` on the states of benchmarks/wbc.py (`wbc_tick`). With the MPC
+cadence of 8 ticks, `--ticks 8` averages over one whole cycle. Prints one
+JSON line. A count, not a time: it is the same on the CPU and on the card,
+except that on the card some calls launch more than one kernel and the
+fused_admm kernel replaces its plain version's calls (chip_smoke.py counts
+the kernels).
 """
 
 from __future__ import annotations
@@ -26,22 +31,31 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import stance_force_balance as stance_fb
 from quadruped_tpu_torch.control import swing as swing_mod
+from quadruped_tpu_torch.control import wbc
 from quadruped_tpu_torch.control.desired_state import ControlMode, TwistCommand
 from quadruped_tpu_torch.control.locomotion import LocomotionConfig
 from quadruped_tpu_torch.core import linalg
 from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT
 from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
+from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
 from quadruped_tpu_torch.sim import rollout as rollout_mod
-from quadruped_tpu_torch.solvers import polish, qp
+from quadruped_tpu_torch.sim import whole_body
+from quadruped_tpu_torch.solvers import cone_qp, polish, qp
 from quadruped_tpu_torch.utils import card
 
-MODES = {"velocity": ControlMode.VELOCITY, "position": ControlMode.POSITION,
-         "advanced_trot": ControlMode.ADVANCED_TROT}
+MODES = ("velocity", "position", "advanced_trot", "wbc", "whole_body",
+         "wbc_tick")
 # (module, function name, stage): innermost stages first in the stack.
-STAGES = [(linalg, "onesided_jacobi_svd", "jacobi_svd"),
+STAGES = [(cone_qp, "fused_admm", "fused_admm"),
+          (linalg, "onesided_jacobi_svd", "jacobi_svd"),
           (qp, "admm_solve", "admm"),
           (polish, "solve_factored", "polish"),
-          (stance_fb, "compute_contact_forces", "stance_force_balance")]
+          (stance_fb, "compute_contact_forces", "stance_force_balance"),
+          (mpc_mod, "mpc_step", "mpc"),
+          (wbc, "wbc_step", "wbc"),
+          (whole_body, "whole_body_step", "whole_body_step"),
+          (whole_body, "observe", "whole_body_observe")]
 
 
 class _Counter(TorchDispatchMode):
@@ -83,13 +97,24 @@ def _staged(counter: _Counter):
             setattr(module, name, fn)
 
 
-def count(mode: str, batch: int, ticks: int, device) -> dict:
-    m = MODES[mode]
-    if m == ControlMode.ADVANCED_TROT:
+def _advance(mode: str, batch: int, device):
+    """A function that runs n more ticks of `mode`, after 3 warm ticks."""
+    if mode == "wbc_tick":
+        step, args = bench_wbc.build(batch, device)
+        step(*args)
+        return lambda n: [step(*args) for _ in range(n)]
+    if mode == "whole_body":
+        loop, _ = bench_wb.run(bench_wb.build(batch, device), 3)
+        return lambda n: bench_wb.run(loop, n)
+    if mode in ("advanced_trot", "wbc"):
         config = LocomotionConfig(mpc=mpc_mod.MpcConfig(),
                                   swing=swing_mod.SwingConfig(),
-                                  gait=ADVANCED_TROT(device))
+                                  gait=ADVANCED_TROT(device),
+                                  wbc=wbc.WbcConfig(),
+                                  use_wbc=mode == "wbc")
     else:
+        m = {"velocity": ControlMode.VELOCITY,
+             "position": ControlMode.POSITION}[mode]
         config = LocomotionConfig(mpc=mpc_mod.MpcConfig(),
                                   swing=swing_mod.SwingConfig(mode=m),
                                   gait=TROT(device), mode=m,
@@ -99,19 +124,25 @@ def count(mode: str, batch: int, ticks: int, device) -> dict:
                                 body_height=0.27, device=device)
     carry = rollout_mod.rollout_init(config, params, batch)
     carry, _ = rollout_mod.rollout_segment(config, params, cmd, carry, 3)
+    return lambda n: rollout_mod.rollout_segment(config, params, cmd, carry,
+                                                 n)
+
+
+def count(mode: str, batch: int, ticks: int, device) -> dict:
+    advance = _advance(mode, batch, device)
     counter = _Counter()
     with _staged(counter), counter:
-        rollout_mod.rollout_segment(config, params, cmd, carry, ticks)
+        advance(ticks)
     by_stage = {k: v / ticks for k, v in counter.by_stage.items()}
-    return {"mode": mode, "batch": batch, "device": str(device),
-            "views_per_tick": counter.views / ticks,
+    return {"mode": mode, "batch": batch, "ticks": ticks,
+            "device": str(device), "views_per_tick": counter.views / ticks,
             "other_calls_per_tick": sum(by_stage.values()),
             "other_calls_by_stage": by_stage}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=list(MODES), default="velocity")
+    ap.add_argument("--mode", choices=MODES, default="velocity")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--ticks", type=int, default=2)
     ap.add_argument("--device", default=None,

@@ -2,10 +2,12 @@
 
 Gait clocks, swing controller, the stance controller of the mode (convex MPC
 in ADVANCED_TROT, the force-balance QP in VELOCITY and POSITION, which
-tracks the CoM adjuster's shift as well), and the masked merge of swing and
-stance commands into one 12-joint hybrid command. Not ported yet: the WALK
-mode, the WBC path (`use_wbc`) and online gait transitions (`gait_b`); each
-raises NotImplementedError.
+tracks the CoM adjuster's shift as well), optionally the whole-body
+controller (`use_wbc`: every 2nd tick, never on a tick that solves the
+MPC; its torques replace the stance torques), and the masked merge of
+swing and stance commands into one 12-joint hybrid command. Not ported
+yet: the WALK mode and online gait transitions (`gait_b`); each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import torch
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import stance_force_balance as stance_fb
 from quadruped_tpu_torch.control import swing as swing_mod
+from quadruped_tpu_torch.control import wbc as wbc_mod
 from quadruped_tpu_torch.control.desired_state import (ControlMode,
                                                        DesiredStateCommand,
                                                        TwistCommand,
                                                        desired_state_init,
                                                        desired_state_update)
 from quadruped_tpu_torch.control.types import HybridCommand, RobotObservation
+from quadruped_tpu_torch.dynamics.floating_base import FloatingBaseModel
 from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
                                                 gait_init, gait_update,
                                                 stance_contact_mask)
@@ -31,6 +35,8 @@ from quadruped_tpu_torch.robots import kinematics
 from quadruped_tpu_torch.robots.params import RobotParams
 
 STANCE_KD = 3.0  # damping on stance joints (reference legCommand {0,0,0,3,tau})
+# Forward CoM offset added to the WBC body-position target.
+WBC_COM_OFFSET_X = 0.018
 # Abad compensation torque per leg, +/-0.9 N*m alternating by side
 # (ADVANCED_TROT only).
 _HIP_COMP = tuple(0.9 * (-1.0) ** ((leg + 1) % 2) if j == 0 else 0.0
@@ -42,7 +48,7 @@ class LocomotionConfig:
     mpc: mpc_mod.MpcConfig
     swing: swing_mod.SwingConfig
     gait: GaitConfig
-    wbc: object = None
+    wbc: wbc_mod.WbcConfig | None = None   # WbcConfig() when None
     use_wbc: bool = False
     # ADVANCED_TROT -> convex-MPC stance; VELOCITY / POSITION ->
     # force-balance stance (ForceBalanceConfig() when None).
@@ -53,8 +59,8 @@ class LocomotionConfig:
     def __post_init__(self):
         if self.mode == ControlMode.WALK:
             raise NotImplementedError("the WALK mode is not ported")
-        if self.use_wbc or self.gait_b is not None:
-            raise NotImplementedError("use_wbc and gait_b are not ported")
+        if self.gait_b is not None:
+            raise NotImplementedError("gait_b is not ported")
 
 
 @dataclasses.dataclass
@@ -88,13 +94,56 @@ def locomotion_init(config: LocomotionConfig, params: RobotParams,
         wbc_iteration=torch.zeros(b, dtype=torch.int32, device=device))
 
 
+def _wbc_command(state_mpc: mpc_mod.MpcState, swing_state,
+                 obs: RobotObservation, gait_state: GaitState,
+                 body_height: torch.Tensor) -> wbc_mod.WbcCommand:
+    """The WBC's targets from the MPC and swing outputs."""
+    r = obs.rot_body_to_world
+    zero = torch.zeros_like(state_mpc.x_vel_des)
+    v_des_world = torch.einsum("bij,bj->bi", r, torch.stack(
+        [state_mpc.x_vel_des, state_mpc.y_vel_des, zero], dim=-1))
+    offset = torch.einsum("bij,j->bi", r, torch.as_tensor(
+        [WBC_COM_OFFSET_X, 0.0, 0.0], dtype=r.dtype, device=r.device))
+    p_des = torch.stack([state_mpc.pos_des_world[:, 0] + offset[:, 0],
+                         state_mpc.pos_des_world[:, 1] + offset[:, 1],
+                         body_height], dim=-1)
+    return wbc_mod.WbcCommand(
+        p_body_des=p_des,
+        v_body_des=torch.cat([v_des_world[:, :2], zero[:, None]], dim=-1),
+        a_body_des=torch.zeros_like(p_des),
+        rpy_des=torch.stack([zero, zero, state_mpc.yaw_des], dim=-1),
+        omega_des_world=torch.stack([zero, zero, state_mpc.yaw_turn_rate],
+                                    dim=-1),
+        p_foot_des=swing_state.wbc_pfoot_des,
+        v_foot_des=swing_state.wbc_vfoot_des,
+        a_foot_des=swing_state.wbc_afoot_des,
+        fr_des=state_mpc.forces_world,
+        contact_state=stance_contact_mask(gait_state))
+
+
 def locomotion_step(config: LocomotionConfig, params: RobotParams,
                     state: LocomotionState, obs: RobotObservation,
                     cmd: TwistCommand, t: torch.Tensor,
+                    model: FloatingBaseModel | None = None,
                     v_preview: torch.Tensor | None = None,
                     z_preview: torch.Tensor | None = None):
     """One control tick. t: [B] time. Returns (HybridCommand,
-    forces_world [B, 4, 3], new state)."""
+    forces_world [B, 4, 3], new state). Pass `model`
+    (dynamics.floating_base.build_model) to run the WBC when
+    config.use_wbc."""
+    wbc_on = config.use_wbc and model is not None
+    any_solve = None
+    if wbc_on:
+        # The WBC runs every 2nd tick, never on a tick that solves the MPC.
+        # One host check covers both: whether any scenario solves and
+        # whether any runs the WBC.
+        trot = config.mode == ControlMode.ADVANCED_TROT
+        solving = (mpc_mod.solve_mask(config.mpc, state.mpc) if trot
+                   else torch.zeros_like(state.wbc_iteration,
+                                         dtype=torch.bool))
+        do_wbc = (state.wbc_iteration % 2 == 0) & ~solving
+        any_solve, any_wbc = torch.stack([solving.any(),
+                                          do_wbc.any()]).tolist()
     des = desired_state_update(state.command, cmd)
     gait_state = gait_update(config.gait, state.gait, t, obs.foot_contact)
     q_sw, dq_sw, swing_mask, swing_state = swing_mod.swing_step(
@@ -106,7 +155,7 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
         tau_stance, forces_world, _, mpc_state = mpc_mod.mpc_step(
             config.mpc, params, config.gait, gait_state, state.mpc, obs, des,
             foot_targets_world=swing_state.foot_target_world,
-            v_preview=v_preview, z_preview=z_preview)
+            v_preview=v_preview, z_preview=z_preview, any_solve=any_solve)
     else:
         # Force-balance stance path; POSITION mode also tracks the CoM
         # adjuster's shift.
@@ -124,6 +173,14 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
         tau_stance = stance_fb.stance_torques(params, obs, forces_world,
                                               stance)
         mpc_state = state.mpc
+
+    if wbc_on and any_wbc:
+        wbc_cmd = _wbc_command(mpc_state, swing_state, obs, gait_state,
+                               des.position[:, 2])
+        _, _, tau_wbc = wbc_mod.wbc_step(config.wbc or wbc_mod.WbcConfig(),
+                                         params, model, obs, wbc_cmd)
+        tau_stance = torch.where(do_wbc[:, None] & (stance_joint_mask > 0.5),
+                                 tau_wbc, tau_stance)
 
     sw = swing_mask > 0.5
     zero = torch.zeros_like(q_sw)

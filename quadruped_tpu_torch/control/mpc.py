@@ -195,16 +195,15 @@ def gravity_warm_start(params: RobotParams,
     return x0.reshape(x0.shape[:-3] + (-1,))
 
 
-def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
-              obs: RobotObservation, des: DesiredStateCommand,
-              contact_table: torch.Tensor, rpy_comp: torch.Tensor,
-              body_height: torch.Tensor, *, iters: int | None = None,
-              x0_warm: torch.Tensor | None = None,
-              y0_warm: torch.Tensor | None = None,
-              alpha: float | None = None, accel_restart: int | None = None,
-              v_preview: torch.Tensor | None = None,
-              z_preview: torch.Tensor | None = None) -> MpcState:
-    """One full MPC problem build + solve for every scenario."""
+def mpc_problem(config: MpcConfig, params: RobotParams, state: MpcState,
+                obs: RobotObservation, des: DesiredStateCommand,
+                contact_table: torch.Tensor, rpy_comp: torch.Tensor,
+                body_height: torch.Tensor,
+                v_preview: torch.Tensor | None = None,
+                z_preview: torch.Tensor | None = None):
+    """The cone QP of one MPC update for every scenario. Returns (state
+    with its desired position re-anchored, ConeQP, pinned force triples
+    [B, 4G] as 0/1)."""
     h = config.horizon
     r_mat = obs.rot_body_to_world
     b = r_mat.shape[0]
@@ -240,10 +239,26 @@ def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
     prob = cone_qp.ConeQP(p=p_cost, q=q_cost,
                           mu=params.friction_coef.expand(b),
                           fz_lo=torch.zeros_like(fz_hi), fz_hi=fz_hi)
+    return state, prob, (fz_hi < 1e-6).float()
+
+
+def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
+              obs: RobotObservation, des: DesiredStateCommand,
+              contact_table: torch.Tensor, rpy_comp: torch.Tensor,
+              body_height: torch.Tensor, *, iters: int | None = None,
+              x0_warm: torch.Tensor | None = None,
+              y0_warm: torch.Tensor | None = None,
+              alpha: float | None = None, accel_restart: int | None = None,
+              v_preview: torch.Tensor | None = None,
+              z_preview: torch.Tensor | None = None) -> MpcState:
+    """One full MPC problem build + solve for every scenario."""
+    state, prob, pin_new = mpc_problem(config, params, state, obs, des,
+                                       contact_table, rpy_comp, body_height,
+                                       v_preview, z_preview)
+    b = prob.q.shape[0]
     rho = cone_qp.RHO_CONE
     if config.qp_rho is not None and x0_warm is None:
         rho = config.qp_rho
-    pin_new = (fz_hi < 1e-6).float()
     x0 = state.warm_primal if x0_warm is None else x0_warm
     y0 = state.warm_dual if y0_warm is None else y0_warm
     if config.qp_warm_shift and not config.move_block and x0_warm is None:
@@ -275,11 +290,12 @@ def _contact_table(config: MpcConfig, gait_config: GaitConfig,
     return table, stance_now
 
 
-def mpc_cold_start(config: MpcConfig, params: RobotParams,
-                   gait_config: GaitConfig, gait_state: GaitState,
-                   state: MpcState, obs: RobotObservation,
-                   des: DesiredStateCommand) -> MpcState:
-    """One high-budget relaxed boot solve seeding the warm-start state."""
+def _cold_start_inputs(config: MpcConfig, params: RobotParams,
+                       gait_config: GaitConfig, gait_state: GaitState,
+                       state: MpcState, obs: RobotObservation,
+                       des: DesiredStateCommand):
+    """(state, contact table, rpy_comp, body height, gravity-split primal
+    start) of the boot solve."""
     state = setup_command(config, state, obs, des)
     body_height = des.position[:, 2]
     rpy_comp = torch.zeros(body_height.shape[0], 2, dtype=torch.float32,
@@ -293,9 +309,33 @@ def mpc_cold_start(config: MpcConfig, params: RobotParams,
         grav_table = condense.group_min(
             table, *condense.move_block_groups(config.horizon,
                                                *config.move_block))
+    return (state, table, rpy_comp, body_height,
+            gravity_warm_start(params, grav_table))
+
+
+def cold_start_problem(config: MpcConfig, params: RobotParams,
+                       gait_config: GaitConfig, gait_state: GaitState,
+                       state: MpcState, obs: RobotObservation,
+                       des: DesiredStateCommand):
+    """(ConeQP, primal start) of the boot solve, as `mpc_cold_start` hands
+    them to `cone_qp.solve` with a zero dual start, config.qp_cold_iters
+    relaxed iterations at alpha config.qp_cold_alpha and no restart."""
+    state, table, rpy_comp, body_height, x0 = _cold_start_inputs(
+        config, params, gait_config, gait_state, state, obs, des)
+    _, prob, _ = mpc_problem(config, params, state, obs, des, table,
+                             rpy_comp, body_height)
+    return prob, x0
+
+
+def mpc_cold_start(config: MpcConfig, params: RobotParams,
+                   gait_config: GaitConfig, gait_state: GaitState,
+                   state: MpcState, obs: RobotObservation,
+                   des: DesiredStateCommand) -> MpcState:
+    """One high-budget relaxed boot solve seeding the warm-start state."""
+    state, table, rpy_comp, body_height, x0 = _cold_start_inputs(
+        config, params, gait_config, gait_state, state, obs, des)
     return mpc_solve(config, params, state, obs, des, table, rpy_comp,
-                     body_height, iters=config.qp_cold_iters,
-                     x0_warm=gravity_warm_start(params, grav_table),
+                     body_height, iters=config.qp_cold_iters, x0_warm=x0,
                      y0_warm=torch.zeros_like(state.warm_dual),
                      alpha=config.qp_cold_alpha, accel_restart=0)
 
@@ -312,20 +352,32 @@ def height_and_pitch_compensation(gait_state: GaitState,
     return height, pitch_comp
 
 
+def solve_mask(config: MpcConfig, state: MpcState) -> torch.Tensor:
+    """[B] bool: the scenarios that solve on this tick."""
+    if config.solve_mode == "always":
+        return torch.ones_like(state.iteration, dtype=torch.bool)
+    if config.solve_mode == "never":
+        return torch.zeros_like(state.iteration, dtype=torch.bool)
+    return ((state.iteration % config.ticks_per_solve == 0)
+            | (state.iteration < config.boot_solve_ticks))
+
+
 def mpc_step(config: MpcConfig, params: RobotParams,
              gait_config: GaitConfig, gait_state: GaitState,
              state: MpcState, obs: RobotObservation,
              des: DesiredStateCommand,
              foot_targets_world: torch.Tensor | None = None,
              v_preview: torch.Tensor | None = None,
-             z_preview: torch.Tensor | None = None):
+             z_preview: torch.Tensor | None = None,
+             any_solve: bool | None = None):
     """One control tick of the MPC stance controller.
 
     Returns (stance torques [B, 12], forces_world [B, 4, 3],
     solved [B] bool, new state). In "cadence" mode the scenarios whose
     cadence falls on this tick solve: the batch is solved once if any does
     and the new state is selected per scenario, as `lax.cond` under
-    `vmap` does in the JAX package.
+    `vmap` does in the JAX package. Whether any does is one host check of
+    `solve_mask`, or `any_solve` when the caller made that check.
     """
     state = setup_command(config, state, obs, des)
     body_height, pitch_comp = height_and_pitch_compensation(
@@ -381,16 +433,13 @@ def mpc_step(config: MpcConfig, params: RobotParams,
                          body_height, v_preview=v_preview,
                          z_preview=z_preview)
 
-    b = r.shape[0]
+    should_solve = solve_mask(config, state)
     if config.solve_mode == "always":
-        should_solve = torch.ones(b, dtype=torch.bool, device=r.device)
         state = do_solve(state)
-    elif config.solve_mode == "never":
-        should_solve = torch.zeros(b, dtype=torch.bool, device=r.device)
-    else:  # "cadence"
-        should_solve = ((state.iteration % config.ticks_per_solve == 0)
-                        | (state.iteration < config.boot_solve_ticks))
-        if bool(should_solve.any()):
+    elif config.solve_mode == "cadence":
+        if any_solve is None:
+            any_solve = bool(should_solve.any())
+        if any_solve:
             state = tree.where(should_solve, do_solve(state), state)
 
     # tau = -J^T R^T f per stance leg.

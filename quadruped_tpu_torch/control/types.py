@@ -38,3 +38,9 @@ class HybridCommand:
     dq: torch.Tensor
     kd: torch.Tensor
     tau: torch.Tensor
+
+    def actuator_torque(self, q_meas: torch.Tensor,
+                        dq_meas: torch.Tensor) -> torch.Tensor:
+        """The hybrid motor law Kp (q - q_meas) + Kd (dq - dq_meas) + tau."""
+        return (self.kp * (self.q - q_meas) + self.kd * (self.dq - dq_meas)
+                + self.tau)

@@ -75,6 +75,16 @@ def _inv_spd_schur(m: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def damped_pinv(j: torch.Tensor, lam: float = 1e-3) -> torch.Tensor:
+    """[..., m, n] wide-matrix right pseudo-inverse, damped: [..., n, m].
+    An all-zero row of j gives an exactly zero column."""
+    m = j.shape[-2]
+    jt = j.transpose(-1, -2)
+    jjt = matmul_small(j, jt) + (lam * lam) * torch.eye(
+        m, dtype=j.dtype, device=j.device)
+    return matmul_small(jt, inv_spd(jjt))
+
+
 def onesided_jacobi_svd(a: torch.Tensor, sweeps: int = 10):
     """Thin SVD of a tall [..., m, n] matrix (n small) by one-sided Jacobi
     over a static pair schedule: returns (u [..., m, n], s [..., n]) with

@@ -1,7 +1,7 @@
 """SE(3)/SO(3) math on batched torch tensors (port of quadruped_tpu/core/se3.py).
 
-Only what the advanced-trot rollout and the force-balance stance controller
-reach is ported. Conventions match
+Only what the advanced-trot rollout, the force-balance stance controller,
+the whole-body model and the WBC reach is ported. Conventions match
 the JAX module: quaternions (w, x, y, z), RPY stored as (roll, pitch, yaw)
 with `rpy_to_rotmat(rpy) = Rz(yaw) Ry(pitch) Rx(roll)` body -> world. Every
 function broadcasts over leading axes.
@@ -56,6 +56,17 @@ def rot_x(theta: torch.Tensor) -> torch.Tensor:
         torch.stack([one, zero, zero], dim=-1),
         torch.stack([zero, c, -s], dim=-1),
         torch.stack([zero, s, c], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def rot_y(theta: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(theta), torch.sin(theta)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    rows = [
+        torch.stack([c, zero, s], dim=-1),
+        torch.stack([zero, one, zero], dim=-1),
+        torch.stack([-s, zero, c], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
 
@@ -131,6 +142,14 @@ def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
     return q * torch.as_tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
                                device=q.device)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate [..., 3] vector(s) by quaternion(s) q (body->world)."""
+    qv = q[..., 1:]
+    w = q[..., :1]
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + w * t + torch.linalg.cross(qv, t)
 
 
 def quat_error_so3(q_des: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Closed-loop batched rollouts: controller + SRB sim (port of quadruped_tpu/sim/rollout.py).
 
 The JAX `lax.scan` over ticks becomes a Python loop over batch-first
-tensors. The MPC runs in "cadence" mode inside the tick. Divergence
-(tip-over / NaN) is a per-scenario mask; dead scenarios are frozen.
-Traces are batch-first: [B, T, ...].
+tensors. The MPC runs in "cadence" mode inside the tick; with
+`config.use_wbc` the rollout builds the whole-body model and the WBC runs
+inside the tick as well. Divergence (tip-over / NaN) is a per-scenario
+mask; dead scenarios are frozen. Traces are batch-first: [B, T, ...];
+beside the JAX module's traces, `tau_trace` keeps the commands'
+feed-forward torques, which the SRB sim does not apply (it welds stance
+feet and servoes swing joints), so that the WBC's output can be seen.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from quadruped_tpu_torch.control.locomotion import (LocomotionConfig,
                                                     locomotion_init,
                                                     locomotion_step)
 from quadruped_tpu_torch.core import se3
+from quadruped_tpu_torch.dynamics import floating_base as fb
 from quadruped_tpu_torch.gait.scheduler import stance_contact_mask
 from quadruped_tpu_torch.robots.params import RobotParams
 from quadruped_tpu_torch.sim import srb_sim
@@ -33,6 +38,7 @@ class RolloutResult(NamedTuple):
     base_height_trace: torch.Tensor   # [B, T]
     vel_trace: torch.Tensor           # [B, T, 3]
     forces_trace: torch.Tensor        # [B, T, 4, 3]
+    tau_trace: torch.Tensor           # [B, T, 12] feed-forward torques
 
 
 @dataclasses.dataclass
@@ -77,13 +83,14 @@ def rollout_segment(config: LocomotionConfig, params: RobotParams,
     """Advance a rollout by `steps` ticks; returns (new carry, result)."""
     sim, ctrl, dead = carry.sim, carry.ctrl, carry.dead
     b, device = sim.t.shape[0], sim.t.device
-    hs, vs, fs = [], [], []
+    hs, vs, fs, taus = [], [], [], []
     dt32 = np.float32(control_dt)
+    model = fb.build_model(params) if config.use_wbc else None
     for i in range(carry.step, carry.step + steps):
         t = tick_time(np.float32(i + 1) * dt32, b, device)
         obs = srb_sim.observe(params, sim, stance_contact_mask(ctrl.gait))
         command, forces, ctrl = locomotion_step(config, params, ctrl, obs,
-                                                cmd, t)
+                                                cmd, t, model=model)
         stance = stance_contact_mask(ctrl.gait)
         sim_new = srb_sim.srb_sim_step(
             params, sim, forces, stance, command.q, command.dq,
@@ -93,12 +100,14 @@ def rollout_segment(config: LocomotionConfig, params: RobotParams,
         hs.append(sim.position[:, 2])
         vs.append(sim.vel_world)
         fs.append(forces)
+        taus.append(command.tau)
     new_carry = RolloutCarry(sim=sim, ctrl=ctrl, dead=dead,
                              step=carry.step + steps)
     result = RolloutResult(sim=sim, control=ctrl, alive=1.0 - dead,
                            base_height_trace=torch.stack(hs, 1),
                            vel_trace=torch.stack(vs, 1),
-                           forces_trace=torch.stack(fs, 1))
+                           forces_trace=torch.stack(fs, 1),
+                           tau_trace=torch.stack(taus, 1))
     return new_carry, result
 
 

@@ -6,9 +6,14 @@ perturbed foot positions, a commanded 0.4 m/s forward drift, and a trot
 table with a per-scenario phase offset that pins half the force triples.
 Drawn with numpy from a seed, then built into the QP by the port's own
 SRB, ZOH and condensation code.
+
+`boot_problems` gives the other solve the closed loop runs: the MPC's
+400-iteration relaxed boot (`mpc_cold_start`) of standing robots.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -49,6 +54,56 @@ def trot_table(batch: int, t: float, rng: np.random.Generator,
     table = np.stack([diag_a, 1 - diag_a, 1 - diag_a, diag_a], axis=2)
     table[:, 0, :] = 1.0
     return table.astype(np.float32)
+
+
+def boot_states(batch: int, horizon: int = 16, seed: int = 0,
+                device=None):
+    """The arguments of `mpc_cold_start` (MpcConfig, params, gait config,
+    gait state, MPC state, observation, desired state) for B standing A1
+    robots at `MpcConfig(horizon=horizon)` (unblocked: n = 12 H), each
+    started 0.25-0.31 m up with its attitude N(0, 0.05) rad, joints
+    N(0, 0.05) rad off the stand angles and base velocities N(0, 0.1), as
+    after a reset. On the card unless `device` says otherwise."""
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control.desired_state import desired_state_init
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.gait.scheduler import gait_init
+    from quadruped_tpu_torch.sim import srb_sim
+
+    device = card.resolve(device)
+    rng = np.random.default_rng(seed)
+    params = a1_params(device)
+    config = mpc_mod.MpcConfig(horizon=horizon)
+
+    def draw(*shape, scale):
+        return torch.as_tensor((rng.normal(size=shape) * scale)
+                               .astype(np.float32), device=device)
+
+    sim = srb_sim.srb_sim_init(params, batch, body_height=torch.as_tensor(
+        rng.uniform(0.25, 0.31, batch).astype(np.float32), device=device))
+    sim = dataclasses.replace(
+        sim, quat=se3.rpy_to_quat(draw(batch, 3, scale=0.05)),
+        q=sim.q + draw(batch, 12, scale=0.05),
+        vel_world=draw(batch, 3, scale=0.1),
+        omega_world=draw(batch, 3, scale=0.1))
+    obs = srb_sim.observe(params, sim, torch.ones_like(sim.q[:, :4]))
+    gait = ADVANCED_TROT(device)
+    return (config, params, gait, gait_init(gait, batch),
+            mpc_mod.mpc_init(config, batch, params.body_height, device), obs,
+            desired_state_init(batch, params.body_height, device))
+
+
+def boot_problems(batch: int, horizon: int = 16, seed: int = 0,
+                  device=None):
+    """The boot solve of `boot_states`: (ConeQP, primal start [B, n],
+    MpcConfig). The solve takes a zero dual start,
+    config.qp_cold_iters iterations at alpha config.qp_cold_alpha and no
+    restart."""
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+
+    args = boot_states(batch, horizon, seed, device)
+    prob, x0 = mpc_mod.cold_start_problem(*args)
+    return prob, x0, args[0]
 
 
 def bench_problems(batch: int, horizon: int = 10, t: float = 0.0,

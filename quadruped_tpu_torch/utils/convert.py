@@ -8,8 +8,11 @@ kept as they are. No JAX import is needed: numpy does the work.
 
 Batch axis: `batch=N` broadcasts every leaf to a leading scenario axis of
 N (one JAX scenario replicated); `batch=None` keeps the leaves' shapes,
-which is right both for a shared `RobotParams` and for a pytree that
-`jax.vmap` already batched along its leading axis.
+which is right both for what the batch shares (`RobotParams`, the
+`FloatingBaseModel`, `ContactModel` and `WbcConfig`, whose scalar and [3]
+leaves broadcast) and for a pytree that `jax.vmap` already batched along
+its leading axis (`FbState`, `WholeBodySimState`, `WbcCommand`, the
+controller state).
 """
 
 from __future__ import annotations

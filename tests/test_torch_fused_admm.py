@@ -5,7 +5,9 @@
   tests/test_pallas_admm.py runs it. Both get the same scaled problem and
   the same M^{-1} (the JAX one, unpadded for the port).
 * On the card (marker `cuda`): the CUDA kernel against the plain version at
-  B=256, H=5, 10 and 16 (n = 60, 120, 192). This module imports no JAX at module level, so the card test
+  B=256, H=5, 10 and 16 (n = 60, 120, 192), and the boot solve the closed
+  loop runs at unblocked H=16 (n = 192, 400 relaxed iterations) held on
+  its unscaled first-step forces. This module imports no JAX at module level, so the card test
   also runs where JAX is absent:
       python -m pytest --noconftest -p no:cacheprovider -m cuda \
           tests/test_torch_fused_admm.py
@@ -14,6 +16,8 @@
 import numpy as np
 import pytest
 import torch
+
+from quadruped_tpu_torch.solvers import problems
 
 from quadruped_tpu_torch.solvers import cone_qp as tcq
 from quadruped_tpu_torch.solvers import fused_admm as tfa
@@ -199,3 +203,44 @@ def test_kernel_matches_plain_on_card(cuda_device, horizon, iters, alpha,
     assert torch.isfinite(xk).all() and torch.isfinite(yk).all()
     torch.testing.assert_close(xk, xr, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(yk, yr, atol=1e-3, rtol=1e-4)
+
+
+def test_boot_problems_are_the_cold_start():
+    """`problems.boot_problems` is the solve `mpc_cold_start` runs: solving
+    it as the boot does gives mpc_cold_start's forces exactly (CPU, B=4,
+    H=16 unblocked, n = 192)."""
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+
+    b = 4
+    prob, x0, cfg = problems.boot_problems(b, device="cpu")
+    assert prob.q.shape == (b, 192) and cfg.qp_cold_iters == 400
+    sol = tcq.solve(prob, iters=cfg.qp_cold_iters, x0=x0,
+                    y0=torch.zeros(b, 64, 5), alpha=cfg.qp_cold_alpha,
+                    accel_restart=0)
+    state = mpc_mod.mpc_cold_start(*problems.boot_states(b, device="cpu"))
+    assert torch.equal(state.forces_world, sol.x[:, :12].reshape(b, 4, 3))
+
+
+@pytest.mark.cuda
+def test_boot_solve_n192_matches_plain_on_card(cuda_device):
+    """The closed loop's boot at unblocked MpcConfig(horizon=16): n = 192,
+    400 relaxed iterations (alpha 1.6, no restart), B=256 standing robots
+    (`problems.boot_problems`). Kernel and plain version on the same card
+    operands; their unscaled first-step forces within 1% m*g, the limit of
+    tests/test_torch_rollout.py. (The scaled iterates are held at n <= 120
+    only, above: at n = 192 the 400 relaxed iterations amplify the change
+    of summation order past 1e-3 + 1e-4 |value|.)"""
+    prob, x0, cfg = problems.boot_problems(256, horizon=16,
+                                           device=cuda_device)
+    assert prob.q.shape[1] == 192
+    inp = tcq.admm_inputs(prob, x0=x0,
+                          y0=torch.zeros(256, 64, 5, device=cuda_device))
+    kw = dict(iters=cfg.qp_cold_iters, sigma=tcq.SIGMA,
+              alpha=cfg.qp_cold_alpha, accel_restart=0)
+    xk, yk = tfa.fused_admm(*inp[:8], **kw)
+    xr, _ = tfa.fused_admm_reference(*inp[:8], **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(xk).all() and torch.isfinite(yk).all()
+    forces_k = (xk * inp.d)[:, :12]
+    forces_r = (xr * inp.d)[:, :12]
+    assert (forces_k - forces_r).abs().max().item() <= 0.01 * 13.0 * 9.81

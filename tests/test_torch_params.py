@@ -97,12 +97,74 @@ def test_converter_round_trips_vmapped_locomotion_state():
     assert torch.equal(single.mpc.warm_primal[4], port.mpc.warm_primal[0])
 
 
+def _assert_same_values(port, ref):
+    want = _flatten(as_numpy(ref))
+    got = _flatten(as_numpy(port))
+    assert want.keys() == got.keys()
+    for key, value in want.items():
+        if isinstance(value, np.ndarray):
+            assert got[key].dtype in (np.float32, np.int32, np.bool_), key
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["FloatingBaseModel", "FbState",
+                                  "WholeBodySimState", "ContactModel",
+                                  "WbcConfig", "WbcCommand"])
+def test_converter_carries_whole_body_dataclasses(name):
+    """Each whole-body dataclass of the JAX package, batched by jax.vmap
+    (3 scenarios) where it is per robot, carried across by `to_torch` with
+    exactly the same values: the model and the configurations as they
+    are, the states with the batch as leading axis."""
+    from quadruped_tpu.control import wbc as jwbc
+    from quadruped_tpu.dynamics import floating_base as jfb
+    from quadruped_tpu.sim import whole_body as jwb
+    from quadruped_tpu_torch.control import wbc as twbc
+    from quadruped_tpu_torch.dynamics import floating_base as tfb
+    from quadruped_tpu_torch.sim import whole_body as twb
+
+    params = j_a1()
+    heights = jnp.asarray([0.26, 0.27, 0.28])
+    sims = jax.vmap(lambda h: jwb.whole_body_init(params, body_height=h))(
+        heights)
+
+    def command(h):
+        z = jnp.zeros(3)
+        feet = jnp.tile(jnp.asarray([0.1, 0.1, 0.0]) * h, (4, 1))
+        return jwbc.WbcCommand(
+            p_body_des=z.at[2].set(h), v_body_des=z, a_body_des=z,
+            rpy_des=z, omega_des_world=z, p_foot_des=feet,
+            v_foot_des=feet * 0, a_foot_des=feet * 0,
+            fr_des=feet + 30.0, contact_state=jnp.asarray([1.0, 0, 0, 1]))
+
+    ref, cls = {
+        "FloatingBaseModel": (jfb.build_model(params), tfb.FloatingBaseModel),
+        "FbState": (sims.fb, tfb.FbState),
+        "WholeBodySimState": (sims, twb.WholeBodySimState),
+        "ContactModel": (jwb.ContactModel(), twb.ContactModel),
+        "WbcConfig": (jwbc.WbcConfig(), twbc.WbcConfig),
+        "WbcCommand": (jax.vmap(command)(heights), twbc.WbcCommand),
+    }[name]
+    port = to_torch(ref, cls)
+    _assert_same_values(port, ref)
+    if name in ("FbState", "WholeBodySimState", "WbcCommand"):
+        leaf = port.fb.q if name == "WholeBodySimState" else (
+            port.q if name == "FbState" else port.p_foot_des)
+        assert leaf.shape[0] == 3
+    if name == "WbcConfig":
+        assert port.qp_iters == 50 and port.friction_mu == 0.4
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """With no device named, the entry points build on the card: the default
     is cuda where a card is found, and where none is they raise instead of
     building on the CPU."""
     from quadruped_tpu_torch import bench
     from quadruped_tpu_torch.benchmarks import mxu_rate
+    from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
+    from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
+    from quadruped_tpu_torch.dynamics.floating_base import build_model
+    from quadruped_tpu_torch.entry import entry
+    from quadruped_tpu_torch.sim.whole_body import whole_body_init
     from quadruped_tpu_torch.control.desired_state import TwistCommand
     from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT, named_gait
     from quadruped_tpu_torch.robots import named_params
@@ -121,7 +183,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
                 lambda: bench.build_bench(2, "loop", 10),
                 lambda: bench.measure(2),
                 lambda: mxu_rate.problems(2, torch.float32),
-                lambda: mxu_rate.measure(2, 1)]
+                lambda: mxu_rate.measure(2, 1),
+                entry, lambda: build_model(a1_params()),
+                lambda: whole_body_init(a1_params(), 2),
+                lambda: bench_wbc.build(2), lambda: bench_wb.build(2)]
     for build in constructors:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
