@@ -45,9 +45,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      forces of the two routes within 3% m*g of each other;
   8. the force-balance modes: `rollout` for B=2048 A1 scenarios in VELOCITY
      mode (TROT, ForceBalanceConfig(): 64 whitened-ADMM iterations, 24
-     active-set polish passes, vx ~ U(0.1, 0.4)) and in POSITION mode
+     active-set polish passes, vx ~ U(0.1, 0.4), 100 ticks) and in
+     POSITION mode
      (vx ~ U(0.0, 0.1)): at least 99% alive, every state finite, ms per
-     tick and ticks/s, and over a few more ticks under torch.profiler the
+     tick and ticks/s, and over one more tick under torch.profiler the
      CUDA kernels per tick and the device's busy share; no kernel of the
      port launches in these modes (their QP is plain torch);
   9. fixture: the 4-scenario VELOCITY and POSITION rollouts against the JAX
@@ -62,19 +63,43 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      every state finite, ms per tick, ticks/s, kernels per tick and busy
      share;
  11. the whole-body closed loop (the twin of the JAX
-     benchmarks/bench_whole_body.py): B=1024, 500 ticks, fused_admm once per
-     solve (1 boot + 63), at least 99% alive and every alive scenario's
-     final height in [0.2, 0.35] m, ticks/s and simulator instances
-     replaced (ticks/s / 500), kernels per tick and busy share; then the
+     benchmarks/bench_whole_body.py): B=1024, 300 ticks (the JAX benchmark
+     times 500), fused_admm once per solve (1 boot + 38), at least 99%
+     alive and every alive scenario's final height in [0.2, 0.35] m,
+     ticks/s and simulator instances replaced (ticks/s / 500), kernels per
+     tick and busy share; then the
      cross-simulator check (the twin of the JAX
      test_whole_body_trot_matches_srb) at B=64: the SRB `rollout` and the
      whole-body loop at `MpcConfig(horizon=5, qp_iters=24,
-     qp_cold_iters=120)`, vx = 0.25, 1000 ticks, agreeing over ticks
-     400-1000 on mean height within 3 cm and mean vx within 0.15 m/s;
+     qp_cold_iters=120)`, vx = 0.25, 600 ticks (the JAX test runs 1000),
+     agreeing over ticks 400-600 on mean height within 3 cm and mean vx
+     within 0.15 m/s;
  12. fixtures: the 4-scenario use_wbc rollout and the WBC outputs of the
      B=8 benchmark states against tests/data/rollout_wbc_a1.npz, the
-     4-scenario whole-body loop against tests/data/whole_body_a1.npz.
-The last two lines are a JSON object describing the kernels (with each
+     4-scenario whole-body loop against tests/data/whole_body_a1.npz;
+ 13. the statically-stable walk (the twin of the JAX
+     benchmarks/bench_walk.py, benchmarks/walk.py): B=256 on the whole-body
+     sim, 320 ticks (past the first TRUE_SWING entry, tick 308): at least
+     99% alive, every state finite, at most one leg in TRUE_SWING per
+     scenario on every tick, every leg that left its unload window swung,
+     no kernel of the port launched (the walk's QPs are plain torch), the
+     pose SQP run on the replan ticks only (counted); ms per tick, ticks/s,
+     robot-seconds per wall second, and kernels per tick and busy share
+     over a replan tick and a normal tick;
+ 14. online gait transitions: the trot -> walk -> trot sequence of the JAX
+     test_closed_loop_trot_walk_trot (400 + 400 + 1000 + 400 + 900 ticks,
+     ADVANCED_TROT with the 0.45 s walk table as `gait_b`) at B=64, vx ~
+     U(0.15, 0.35), `gait_switch` raised in different segments per
+     scenario (rows 0-3: the fixture's scenarios): at least 99% alive,
+     fused_admm once per MPC solve (1 boot + 388), every scenario ending in
+     phase NONE on the table its switch edges lead to, at most two legs
+     unloaded on the walk table; ms per tick and kernels per tick;
+ 15. fixtures: the walk windows of tests/data/walk_a1.npz (the JAX flat
+     walk, stair climb and gap crossing resumed from checkpoints; the
+     first 60 of each window's 120 ticks) and rows 0-3 of phase 14 against
+     tests/data/gait_transition_a1.npz, at the CPU tests' limits.
+Every phase line ends with its wall time since the previous line. The last
+two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
 and its operations over the peak rate of their type) and the device JSON
 object. There is no CPU path: without a CUDA device the script fails
@@ -83,6 +108,7 @@ before printing a result.
 
 from __future__ import annotations
 
+import gc
 import json
 import sys
 import time
@@ -96,6 +122,8 @@ FIXTURE = ROOT / "tests" / "data" / "rollout_cadenced_a1_h10.npz"
 MODES_FIXTURE = ROOT / "tests" / "data" / "rollout_modes_a1.npz"
 WBC_FIXTURE = ROOT / "tests" / "data" / "rollout_wbc_a1.npz"
 WB_FIXTURE = ROOT / "tests" / "data" / "whole_body_a1.npz"
+WALK_FIXTURE = ROOT / "tests" / "data" / "walk_a1.npz"
+TRANS_FIXTURE = ROOT / "tests" / "data" / "gait_transition_a1.npz"
 BATCH = 2048
 N_PERIODS = 18
 # Kernel vs plain: max |diff| <= ATOL + RTOL |plain| on the scaled iterates.
@@ -133,10 +161,10 @@ FULL_FORCE_ATOL, FULL_RESIDUAL, FULL_RESIDUAL_GAP = 0.5, 5e-3, 1e-4
 DOTS_TOL = {"bf16": (2e-2, 2e-4), "f32": (1e-5, 1e-6)}
 DOTS_3PASS_ATOL = 5e-6
 BENCH_BATCH = 8192
-# The force-balance rollouts (phase 8): ticks of 2 ms; the TROT cycle is
-# 0.5 s (250 ticks).
-MODE_TICKS = {"velocity": 500, "position": 250}
-PROFILE_TICKS = 3
+# The force-balance rollouts (phase 8): ticks of 2 ms (the TROT cycle is
+# 0.5 s, 250 ticks; cut to 100 to keep the script inside its time).
+MODE_TICKS = {"velocity": 100, "position": 100}
+PROFILE_TICKS = 1
 # Card vs the JAX modes fixture (phase 9), as tests/test_torch_locomotion_
 # modes.py: the cadenced fixture's limits, touchdown anchors 1e-3 m (the
 # velocity-mode foothold follows the base velocity over half a stance).
@@ -145,9 +173,9 @@ MODES_FIXTURE_TOL = dict(FIXTURE_TOL, foot_anchor=1e-3)
 # profiled (one MPC cadence cycle of 8 ticks: 1 solve, 3 WBC ticks).
 WB_BATCH = 1024
 WBC_TICKS = 400
-WB_TICKS = 500
+WB_TICKS = 300
 CYCLE_TICKS = 8
-CROSS_BATCH, CROSS_TICKS = 64, 1000
+CROSS_BATCH, CROSS_TICKS = 64, 600
 # Card vs the JAX fixtures, the limits of tests/test_torch_wbc.py and
 # tests/test_torch_whole_body.py (each with the CPU reading there).
 WBC_FIXTURE_TOL = dict(FIXTURE_TOL, foot_anchor=1e-4,
@@ -156,6 +184,19 @@ WBC_TICK_TOL = {"q_des": 1e-4, "dq_des": 5e-4, "tau": 2e-3}
 WB_FIXTURE_TOL = {"quat": 4e-3, "position": 2e-3, "omega_body": 0.1,
                   "vel_body": 3e-2, "q": 4e-2, "height_trace": 5e-4,
                   "vx_trace": 2e-2}
+# The walk (phase 13): B, ticks (past the first TRUE_SWING entry at tick
+# 308 of the 3.7 s table; the JAX bench times 500).
+WALK_BATCH, WALK_TICKS = 256, 320
+# The walk windows of the fixture (phase 15): the first 60 of each
+# window's 120 ticks (every event is at tick 10), at the CPU test's limits.
+WALK_WINDOW_TICKS = 60
+# Gait transitions (phase 14): B, the JAX test's segments and, per pattern,
+# the gait_switch level of each segment; rows 0-3 are the fixture's
+# scenarios (tests/test_torch_gait_transition.py: vx 0.25, rows 0-1 switch
+# in segment 2).
+TRANS_BATCH = 64
+TRANS_PATTERNS = ((0, 1, 0, 1, 0), (0, 1, 0, 0, 0), (0, 0, 0, 1, 0),
+                  (0, 0, 0, 0, 0), (1, 0, 0, 1, 0))
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -192,14 +233,15 @@ def newton_schulz_ops(batch: int, n: int, ns_bf16: int, ns_f32: int) -> dict:
 
 def device_profile(fn, ticks: int, tick_ms: float) -> dict:
     """CUDA kernels per tick and the device's busy share: fn() runs `ticks`
-    control ticks under torch.profiler; busy share = the union of the
-    kernels' device intervals per tick over `tick_ms`, the host time of a
-    tick measured without the profiler."""
+    control ticks under torch.profiler (device activity only: the host
+    operators' events would cost tens of seconds to collect over ~20k
+    kernels a tick); busy share = the union of the kernels' device
+    intervals per tick over `tick_ms`, the host time of a tick measured
+    without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -218,7 +260,13 @@ def device_profile(fn, ticks: int, tick_ms: float) -> dict:
                 device_busy_share=busy_us / ticks / (1e3 * tick_ms))
 
 
+_LAST_LINE = [time.perf_counter()]
+
+
 def phase(name: str, **values):
+    now = time.perf_counter()
+    values["phase_wall_s"] = f"{now - _LAST_LINE[0]:.1f}"
+    _LAST_LINE[0] = now
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in values.items()),
           flush=True)
 
@@ -245,7 +293,11 @@ def main() -> int:
     from quadruped_tpu_torch.solvers import problems
     from quadruped_tpu_torch.solvers.problems import bench_problems
     from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
+    from quadruped_tpu_torch.benchmarks import walk as bench_walk
     from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
+    from quadruped_tpu_torch.benchmarks import transition as bench_trans
+    from quadruped_tpu_torch.gait.walk import SubLegState
+    from quadruped_tpu_torch.planner import pose_planner
     from quadruped_tpu_torch.control import wbc as wbc_mod
     from quadruped_tpu_torch.utils import card, cuda_build
 
@@ -876,6 +928,206 @@ def main() -> int:
     hold("fixture:whole_body", got, data, WB_FIXTURE_TOL,
          ticks=int(data["ticks"]))
 
+    # 13. The statically-stable walk: the bench twin at B=256. The objects
+    # the earlier phases left are moved out of the garbage collector's
+    # reach first: the walk tick makes ~34k tensor objects, and full
+    # collections over a large heap would be timed as tick time.
+    gc.collect()
+    gc.freeze()
+    sqp_calls = [0]
+    sqp = pose_planner.plan_target_pose_sqp
+
+    def counted_sqp(*a, **k):
+        sqp_calls[0] += 1
+        return sqp(*a, **k)
+
+    bench_walk.run(bench_walk.build(WALK_BATCH, dev), 2)     # warm-up
+    torch.cuda.synchronize()
+    loop = bench_walk.build(WALK_BATCH, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    pose_planner.plan_target_pose_sqp = counted_sqp
+    try:
+        t0 = time.perf_counter()
+        loop, tr = bench_walk.run(loop, WALK_TICKS, record=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pose_planner.plan_target_pose_sqp = sqp
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if any(counts.values()):
+        raise RuntimeError(f"walk launched kernels: {counts}")
+    tensors = [getattr(loop.sim.fb, f) for f in loop.sim.fb.__dataclass_fields__]
+    tensors += [t for t in (loop.walk.liftoff_pos_world,
+                            loop.walk.foot_target_world,
+                            loop.walk.warm_forces, loop.walk.pose.pose_target,
+                            loop.walk.gait.normalized_phase,
+                            tr["position"], tr["forces"], tr["q_cmd"])]
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise RuntimeError("non-finite state in the walk")
+    sub = tr["sub_state"].cpu().numpy()                      # [B, T, 4]
+    swinging = sub == SubLegState.TRUE_SWING
+    max_swinging = int(swinging.sum(-1).max())
+    unload = sub == SubLegState.UNLOAD_FORCE
+    left_unload = (unload[:, :-1] & ~unload[:, 1:]).any(1)   # [B, 4]
+    legs_swung = int(swinging.any(1).sum())
+    missed_swings = int((left_unload & ~swinging.any(1)).sum())
+    # Replan ticks: a leg enters its swing window (or, on the first tick,
+    # no plan is latched yet).
+    prev = np.concatenate([np.ones_like(sub[:, :1]), sub[:, :-1]], 1)
+    entering = ((sub == SubLegState.FULL_STANCE) & (prev == 1)).any((0, 2))
+    entering[0] = True
+    replan_ticks = int(entering.sum())
+    alive = bench_walk.alive(loop).mean().item()
+    tick_ms = 1e3 * wall / WALK_TICKS
+    fresh = bench_walk.build(WALK_BATCH, dev)
+    holder = [fresh]
+
+    def one_tick():
+        holder[0], _ = bench_walk.run(holder[0], 1)
+
+    prof_replan = device_profile(one_tick, 1, tick_ms)
+    prof_normal = device_profile(one_tick, 1, tick_ms)
+    h = bench_walk.base_position(loop)[:, 2]
+    phase(f"walk:B{WALK_BATCH}", ticks=WALK_TICKS, kernel_launches=
+          json.dumps(counts), sqp_calls=sqp_calls[0],
+          replan_ticks=replan_ticks, alive_fraction=alive,
+          max_legs_in_true_swing=max_swinging, legs_swung=legs_swung,
+          legs_that_left_unload_without_swinging=missed_swings,
+          final_height_min=h.min().item(), final_height_max=h.max().item(),
+          wall_s=wall, ms_per_tick=tick_ms,
+          ticks_per_s=WALK_BATCH * WALK_TICKS / wall,
+          robot_seconds_per_wall_second=WALK_BATCH * WALK_TICKS / wall
+          * bench_walk.DT,
+          **{f"replan_{k}": v for k, v in prof_replan.items()},
+          **{f"normal_{k}": v for k, v in prof_normal.items()},
+          card=json.dumps(smi))
+    if (alive < 0.99 or max_swinging > 1 or missed_swings or legs_swung == 0
+            or sqp_calls[0] != replan_ticks):
+        raise RuntimeError(
+            f"walk: alive {alive}, {max_swinging} legs in TRUE_SWING at "
+            f"once, {missed_swings} legs left unload without swinging, "
+            f"{legs_swung} swung, SQP {sqp_calls[0]} calls on "
+            f"{replan_ticks} replan ticks")
+
+    # 14. Gait transitions: trot -> walk -> trot at B=64.
+    gc.collect()
+    gc.freeze()
+    trans_config = bench_trans.config(dev)
+    pattern = np.asarray([TRANS_PATTERNS[i % len(TRANS_PATTERNS)]
+                          for i in range(TRANS_BATCH)], np.float32)
+    pattern[:4] = [TRANS_PATTERNS[0], TRANS_PATTERNS[0], TRANS_PATTERNS[3],
+                   TRANS_PATTERNS[3]]
+    rng = np.random.default_rng(0)
+    trans_vx = (0.15 + 0.2 * rng.random(TRANS_BATCH)).astype(np.float32)
+    trans_vx[:4] = 0.25
+    carry = rollout_mod.rollout_init(trans_config, params, TRANS_BATCH)
+    rollout_mod.rollout_segment(trans_config, params, TwistCommand.constant(
+        vx=trans_vx, body_height=0.27, device=dev), carry, 2)    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    carry = rollout_mod.rollout_init(trans_config, params, TRANS_BATCH)
+    t_phase, t_idx, seg_res = [], [], []
+    t0 = time.perf_counter()
+    for s, steps in enumerate(bench_trans.SEGMENTS):
+        cmd = TwistCommand.constant(vx=trans_vx, body_height=0.27,
+                                    gait_switch=pattern[:, s], device=dev)
+        if s >= bench_trans.FIXTURE_SEGMENTS:
+            # Past the fixture's segments the transition fields are not
+            # needed tick by tick.
+            carry, res = rollout_mod.rollout_segment(trans_config, params,
+                                                     cmd, carry, steps)
+            seg_res.append([res])
+            continue
+        res_ticks = []
+        for _ in range(steps):
+            carry, res = rollout_mod.rollout_segment(trans_config, params,
+                                                     cmd, carry, 1)
+            t_phase.append(carry.ctrl.transition.phase.clone())
+            t_idx.append(carry.ctrl.transition.active_idx.clone())
+            res_ticks.append(res)
+        seg_res.append(res_ticks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trans_ticks = sum(bench_trans.SEGMENTS)
+    solves = -(-trans_ticks // CYCLE_TICKS)
+    launches_trans = counts_after("gait_transition", "fused_admm",
+                                  1 + solves)
+    t_phase = torch.stack(t_phase, 1).cpu().numpy()
+    t_idx = torch.stack(t_idx, 1).cpu().numpy()
+    edges = ((pattern[:, 1:] > 0.5) & (pattern[:, :-1] <= 0.5)).sum(1) \
+        + (pattern[:, 0] > 0.5)
+    want_idx = (edges % 2).astype(np.float32)
+    alive = (1.0 - carry.dead).mean().item()
+    walk_end = sum(bench_trans.SEGMENTS[:3]) - 1
+    on_walk = t_idx[:, walk_end] > 0.5
+    fz = torch.stack([r.forces_trace[:, -1, :, 2]
+                      for r in seg_res[2][-300:]], 1).cpu().numpy()
+    unloaded = int((4 - (fz[on_walk] > 0.5).sum(-1)).max()) \
+        if on_walk.any() else -1
+    final = carry.ctrl.transition
+    final_ok = bool((final.phase == 0).all().item() and np.array_equal(
+        final.active_idx.cpu().numpy(), want_idx))
+    tick_ms = 1e3 * wall / trans_ticks
+    prof = device_profile(lambda: rollout_mod.rollout_segment(
+        trans_config, params, cmd, carry, CYCLE_TICKS), CYCLE_TICKS, tick_ms)
+    phase(f"gait_transition:B{TRANS_BATCH}", ticks=trans_ticks,
+          kernel_launches=launches_trans, expected_launches=1 + solves,
+          alive_fraction=alive, on_walk_after_segment3=int(on_walk.sum()),
+          max_legs_unloaded_on_walk=unloaded,
+          final_phase_none_and_table=final_ok,
+          wall_s=wall, ms_per_tick=tick_ms,
+          ticks_per_s=TRANS_BATCH * trans_ticks / wall, **prof,
+          card=json.dumps(smi))
+    if alive < 0.99 or not final_ok or unloaded > 2 or not on_walk.any():
+        raise RuntimeError(f"gait_transition: alive {alive}, final "
+                           f"phases/tables ok {final_ok}, {unloaded} legs "
+                           f"unloaded on the walk table")
+
+    # 15. Fixtures: the walk windows, and rows 0-3 of phase 14.
+    data = np.load(WALK_FIXTURE)
+    loops, rows = bench_walk.window_loops(data, dev)
+    port = {}
+    for sim_kind, wloop in loops.items():
+        _, wtr = bench_walk.run(wloop, WALK_WINDOW_TICKS, record=True)
+        for key, _, kind, _ in bench_walk.checkpoints():
+            if kind == sim_kind:
+                port[key] = {k: v[rows[key]].cpu().numpy()
+                             for k, v in wtr.items()}
+    for key, errs in bench_walk.window_errors(data, port).items():
+        missed = errs.pop("missed")
+        phase(f"fixture:walk_{key}", ticks=WALK_WINDOW_TICKS,
+              sub_states="equal", missed_port_jax=f"{missed[0]}/{missed[1]}",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+        if bad:
+            raise RuntimeError(f"fixture walk {key} mismatch: {bad}")
+
+    data = np.load(TRANS_FIXTURE)
+    n_fix = data["loop/phase"].shape[1]
+    fix_res = [r for seg in seg_res[:bench_trans.FIXTURE_SEGMENTS]
+               for r in seg]
+    stride = bench_trans.TRACE_STRIDE
+    got = {"loop/phase": t_phase[:4, :n_fix].astype(np.int8),
+           "loop/active_idx": t_idx[:4, :n_fix].astype(np.int8)}
+    for key in ("base_height_trace", "vel_trace", "forces_trace"):
+        series = torch.cat([getattr(r, key)[:4] for r in fix_res],
+                           1).cpu().numpy()
+        got[f"loop/{key}"] = series[:, stride - 1::stride]
+    ends = np.cumsum(bench_trans.SEGMENTS[:bench_trans.FIXTURE_SEGMENTS]) - 1
+    for s_i, end in enumerate(ends):
+        got[f"loop/end{s_i}/alive"] = fix_res[end].alive[:4].cpu().numpy()
+        for f in bench_trans.SIM_FIELDS:
+            got[f"loop/end{s_i}/{f}"] = getattr(fix_res[end].sim,
+                                                f)[:4].cpu().numpy()
+    errs = bench_trans.fixture_errors(got, data)
+    phase("fixture:gait_transition", ticks=n_fix, phases_and_tables="equal",
+          **{k.replace("loop/", ""): f"{e:.3g}/{lim:.3g}"
+             for k, (e, lim) in errs.items()})
+    bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+    if bad:
+        raise RuntimeError(f"fixture gait_transition mismatch: {bad}")
+
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
@@ -900,6 +1152,7 @@ def main() -> int:
         "launches_bench": bench_launches["fused_admm"],
         "launches_wbc_rollout": launches_wbc,
         "launches_whole_body": launches_wb,
+        "launches_gait_transition": launches_trans,
         "ms_boot_n192": timing["boot_n192"][0],
         "plain_ms_boot_n192": timing["boot_n192"][1],
         "bound_ms_boot_n192": timing["boot_n192"][2],

@@ -8,9 +8,10 @@ Conventions of the port:
 
   * batch-first: every state, observation and command tensor carries a
     leading scenario axis [B, ...] written out (the JAX code writes one
-    scenario and `jax.vmap`s it). Robot parameters and gait tables are one
-    robot model shared by the batch, as in the JAX rollouts that close over
-    them, and broadcast against the scenario axis;
+    scenario and `jax.vmap`s it). Robot parameters are one robot model
+    shared by the batch, as in the JAX rollouts that close over them, and
+    broadcast against the scenario axis; a gait table is shared ([4]
+    fields) or, under online gait transitions, one per scenario ([B, 4]);
   * float32 throughout; the device is taken from the input tensors;
   * plain functions on tensors, dataclasses for state and config
     (`dataclasses.replace` stands in for flax's `.replace`);

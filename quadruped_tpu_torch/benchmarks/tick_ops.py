@@ -3,17 +3,21 @@
     python quadruped_tpu_torch/benchmarks/tick_ops.py [--mode velocity]
         [--batch 8] [--ticks 2] [--device cpu]
 
-Runs a few warm ticks of the mode, then counts every torch operator call
-of `--ticks` more ticks with a dispatch hook, split into the views (which
-launch nothing) and the rest, and the rest by stage (the innermost of the
-STAGES functions on the stack; `fused_admm` is the ADMM loop that is one
-kernel launch on the card). Modes: `rollout` of the A1 in VELOCITY /
+Runs a few warm ticks of the mode (none in `walk`), then counts every
+torch operator call of `--ticks` more ticks with a dispatch hook, split
+into the views (which launch nothing) and the rest, and the rest by stage
+(the innermost of the STAGES functions on the stack; `fused_admm` is the
+ADMM loop that is one kernel launch on the card). Modes: `rollout` of the A1 in VELOCITY /
 POSITION (TROT, ForceBalanceConfig()), ADVANCED_TROT at MpcConfig()
 (`advanced_trot`) and the same with the WBC (`wbc`, use_wbc=True); the
-whole-body closed loop of benchmarks/whole_body.py (`whole_body`); and one
-`wbc_step` on the states of benchmarks/wbc.py (`wbc_tick`). With the MPC
-cadence of 8 ticks, `--ticks 8` averages over one whole cycle. Prints one
-JSON line. A count, not a time: it is the same on the CPU and on the card,
+whole-body closed loop of benchmarks/whole_body.py (`whole_body`); one
+`wbc_step` on the states of benchmarks/wbc.py (`wbc_tick`); the walk bench
+of benchmarks/walk.py (`walk`: its first tick, which runs the pose SQP,
+counted apart from the `--ticks` that follow, which do not; the SQP's own
+calls under `pose_sqp/`); and the ADVANCED_TROT loop with a second gait
+table (`transition`, the configuration of the JAX
+test_closed_loop_trot_walk_trot). With the MPC cadence of 8 ticks,
+`--ticks 8` averages over one whole cycle. Prints one JSON line. A count, not a time: it is the same on the CPU and on the card,
 except that on the card some calls launch more than one kernel and the
 fused_admm kernel replaces its plain version's calls (chip_smoke.py counts
 the kernels).
@@ -34,9 +38,13 @@ from quadruped_tpu_torch.control import swing as swing_mod
 from quadruped_tpu_torch.control import wbc
 from quadruped_tpu_torch.control.desired_state import ControlMode, TwistCommand
 from quadruped_tpu_torch.control.locomotion import LocomotionConfig
-from quadruped_tpu_torch.core import linalg
+from quadruped_tpu_torch.core import linalg, splines
+from quadruped_tpu_torch.control import walk_locomotion
 from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT
+from quadruped_tpu_torch.gait.scheduler import _config
+from quadruped_tpu_torch.planner import pose_planner
 from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.benchmarks import walk as bench_walk
 from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
 from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
 from quadruped_tpu_torch.sim import rollout as rollout_mod
@@ -45,9 +53,11 @@ from quadruped_tpu_torch.solvers import cone_qp, polish, qp
 from quadruped_tpu_torch.utils import card
 
 MODES = ("velocity", "position", "advanced_trot", "wbc", "whole_body",
-         "wbc_tick")
+         "wbc_tick", "walk", "transition")
 # (module, function name, stage): innermost stages first in the stack.
 STAGES = [(cone_qp, "fused_admm", "fused_admm"),
+          (walk_locomotion, "walk_gait_update", "gait"),
+          (splines, "swing_parabola", "swing"),
           (linalg, "onesided_jacobi_svd", "jacobi_svd"),
           (qp, "admm_solve", "admm"),
           (polish, "solve_factored", "polish"),
@@ -55,7 +65,8 @@ STAGES = [(cone_qp, "fused_admm", "fused_admm"),
           (mpc_mod, "mpc_step", "mpc"),
           (wbc, "wbc_step", "wbc"),
           (whole_body, "whole_body_step", "whole_body_step"),
-          (whole_body, "observe", "whole_body_observe")]
+          (whole_body, "observe", "whole_body_observe"),
+          (pose_planner, "plan_target_pose_sqp", "pose_sqp")]
 
 
 class _Counter(TorchDispatchMode):
@@ -70,6 +81,8 @@ class _Counter(TorchDispatchMode):
             self.views += 1
         else:
             key = self.stage[-1]
+            if "pose_sqp" in self.stage[:-1]:
+                key = "pose_sqp/" + key
             self.by_stage[key] = self.by_stage.get(key, 0) + 1
         return func(*args, **(kwargs or {}))
 
@@ -103,10 +116,24 @@ def _advance(mode: str, batch: int, device):
         step, args = bench_wbc.build(batch, device)
         step(*args)
         return lambda n: [step(*args) for _ in range(n)]
+    if mode == "walk":
+        # No warm ticks: the first tick is the one that plans the pose.
+        loop = [bench_walk.build(batch, device)]
+
+        def advance(n):
+            loop[0], _ = bench_walk.run(loop[0], n)
+
+        return advance
     if mode == "whole_body":
         loop, _ = bench_wb.run(bench_wb.build(batch, device), 3)
         return lambda n: bench_wb.run(loop, n)
-    if mode in ("advanced_trot", "wbc"):
+    if mode == "transition":
+        config = LocomotionConfig(
+            mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
+            swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(device),
+            gait_b=_config(0.45, 0.75, [0.5, 0.0, 0.75, 0.25],
+                           device=device))
+    elif mode in ("advanced_trot", "wbc"):
         config = LocomotionConfig(mpc=mpc_mod.MpcConfig(),
                                   swing=swing_mod.SwingConfig(),
                                   gait=ADVANCED_TROT(device),
@@ -128,16 +155,23 @@ def _advance(mode: str, batch: int, device):
                                                  n)
 
 
-def count(mode: str, batch: int, ticks: int, device) -> dict:
-    advance = _advance(mode, batch, device)
+def _count(advance, ticks: int) -> dict:
     counter = _Counter()
     with _staged(counter), counter:
         advance(ticks)
     by_stage = {k: v / ticks for k, v in counter.by_stage.items()}
-    return {"mode": mode, "batch": batch, "ticks": ticks,
-            "device": str(device), "views_per_tick": counter.views / ticks,
+    return {"views_per_tick": counter.views / ticks,
             "other_calls_per_tick": sum(by_stage.values()),
             "other_calls_by_stage": by_stage}
+
+
+def count(mode: str, batch: int, ticks: int, device) -> dict:
+    advance = _advance(mode, batch, device)
+    out = {"mode": mode, "batch": batch, "ticks": ticks,
+           "device": str(device)}
+    if mode == "walk":
+        out["replan_tick"] = _count(advance, 1)
+    return dict(out, **_count(advance, ticks))
 
 
 def main(argv=None) -> int:

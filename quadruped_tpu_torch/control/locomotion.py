@@ -1,13 +1,14 @@
 """Locomotion controller tick, batched (port of quadruped_tpu/control/locomotion.py).
 
-Gait clocks, swing controller, the stance controller of the mode (convex MPC
-in ADVANCED_TROT, the force-balance QP in VELOCITY and POSITION, which
-tracks the CoM adjuster's shift as well), optionally the whole-body
-controller (`use_wbc`: every 2nd tick, never on a tick that solves the
-MPC; its torques replace the stance torques), and the masked merge of
-swing and stance commands into one 12-joint hybrid command. Not ported
-yet: the WALK mode and online gait transitions (`gait_b`); each raises
-NotImplementedError.
+Online gait transitions (with `gait_b`: control/gait_transition.py, which
+may put every scenario on its own table), gait clocks, swing controller,
+the stance controller of the mode (convex MPC in ADVANCED_TROT, the
+force-balance QP in VELOCITY, POSITION and WALK; POSITION tracks the CoM
+adjuster's shift as well), optionally the whole-body controller
+(`use_wbc`: every 2nd tick, never on a tick that solves the MPC; its
+torques replace the stance torques), and the masked merge of swing and
+stance commands into one 12-joint hybrid command. The statically-stable
+walk with its pose planner and load ramps is control/walk_locomotion.py.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import dataclasses
 
 import torch
 
+from quadruped_tpu_torch.control import gait_transition as gt_mod
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import stance_force_balance as stance_fb
 from quadruped_tpu_torch.control import swing as swing_mod
@@ -50,17 +52,13 @@ class LocomotionConfig:
     gait: GaitConfig
     wbc: wbc_mod.WbcConfig | None = None   # WbcConfig() when None
     use_wbc: bool = False
-    # ADVANCED_TROT -> convex-MPC stance; VELOCITY / POSITION ->
+    # ADVANCED_TROT -> convex-MPC stance; VELOCITY / POSITION / WALK ->
     # force-balance stance (ForceBalanceConfig() when None).
     mode: int = ControlMode.ADVANCED_TROT
     force_balance: stance_fb.ForceBalanceConfig | None = None
+    # Second gait table: a rising edge of TwistCommand.gait_switch toggles
+    # a scenario between `gait` and `gait_b` (decel, stance hold, swap).
     gait_b: GaitConfig | None = None
-
-    def __post_init__(self):
-        if self.mode == ControlMode.WALK:
-            raise NotImplementedError("the WALK mode is not ported")
-        if self.gait_b is not None:
-            raise NotImplementedError("gait_b is not ported")
 
 
 @dataclasses.dataclass
@@ -70,7 +68,7 @@ class LocomotionState:
     swing: swing_mod.SwingState
     command: DesiredStateCommand
     wbc_iteration: torch.Tensor  # [B] int32
-    transition: object = None
+    transition: gt_mod.GaitTransitionState | None = None
 
 
 def locomotion_init(config: LocomotionConfig, params: RobotParams,
@@ -91,7 +89,9 @@ def locomotion_init(config: LocomotionConfig, params: RobotParams,
     return LocomotionState(
         gait=gait_state, mpc=mpc_state,
         swing=swing_mod.swing_init(params, obs), command=command,
-        wbc_iteration=torch.zeros(b, dtype=torch.int32, device=device))
+        wbc_iteration=torch.zeros(b, dtype=torch.int32, device=device),
+        transition=(gt_mod.gait_transition_init(b, device)
+                    if config.gait_b is not None else None))
 
 
 def _wbc_command(state_mpc: mpc_mod.MpcState, swing_state,
@@ -144,16 +144,27 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
         do_wbc = (state.wbc_iteration % 2 == 0) & ~solving
         any_solve, any_wbc = torch.stack([solving.any(),
                                           do_wbc.any()]).tolist()
+    # The gait transition manager scales the command, may freeze or swap
+    # the gait clock, and pins full stance through the hold.
+    gait_cfg, gait_pre, hold, trans_state = (config.gait, state.gait, None,
+                                             state.transition)
+    if config.gait_b is not None:
+        gait_cfg, gait_pre, cmd, hold, trans_state = \
+            gt_mod.gait_transition_step(state.transition, state.gait,
+                                        config.gait, config.gait_b, cmd, t,
+                                        obs.foot_contact)
     des = desired_state_update(state.command, cmd)
-    gait_state = gait_update(config.gait, state.gait, t, obs.foot_contact)
+    gait_state = gait_update(gait_cfg, gait_pre, t, obs.foot_contact)
+    if hold is not None:
+        gait_state = gt_mod.hold_stance_gait(hold, gait_state)
     q_sw, dq_sw, swing_mask, swing_state = swing_mod.swing_step(
-        config.swing, params, config.gait, gait_state, state.swing, obs, des)
+        config.swing, params, gait_cfg, gait_state, state.swing, obs, des)
     stance = stance_contact_mask(gait_state)
     stance_joint_mask = torch.repeat_interleave(stance, 3, dim=-1)
 
     if config.mode == ControlMode.ADVANCED_TROT:
         tau_stance, forces_world, _, mpc_state = mpc_mod.mpc_step(
-            config.mpc, params, config.gait, gait_state, state.mpc, obs, des,
+            config.mpc, params, gait_cfg, gait_state, state.mpc, obs, des,
             foot_targets_world=swing_state.foot_target_world,
             v_preview=v_preview, z_preview=z_preview, any_solve=any_solve)
     else:
@@ -198,5 +209,5 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
     new_state = LocomotionState(gait=gait_state, mpc=mpc_state,
                                 swing=swing_state, command=des,
                                 wbc_iteration=state.wbc_iteration + 1,
-                                transition=state.transition)
+                                transition=trans_state)
     return command, forces_world, new_state

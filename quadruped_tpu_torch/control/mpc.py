@@ -410,7 +410,7 @@ def mpc_step(config: MpcConfig, params: RobotParams,
         in_contact = (gait_state.leg_state != LegState.SWING)[:, :, None]
         com_dest = torch.mean(torch.where(in_contact, foot_world,
                                           foot_targets_world), dim=1)
-        duty = gait_config.duty_factor[0]
+        duty = gait_config.duty_factor[..., 0]
         p0 = gait_state.phase_in_full_cycle[:, 0]
         p1 = gait_state.phase_in_full_cycle[:, 1]
         leg0_sw = gait_state.desired_leg_state[:, 0] == LegState.SWING

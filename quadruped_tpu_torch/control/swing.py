@@ -2,9 +2,9 @@
 
 Per-leg masked arithmetic over [B, 4, 3]: lift-off latching, the foothold
 law of the mode (the advanced-trot heuristic, or the velocity-mode Raibert
-law for every other mode), the touchdown-wait probe, the swing curve, and
-IK to joint targets. Not ported: the terrain hook `foothold_adjust_fn`,
-which only the walk and terrain planners use.
+law for every other mode), the touchdown-wait probe, the optional terrain
+hook `SwingConfig.foothold_adjust_fn`, the swing curve, and IK to joint
+targets. The gait table may be shared by the batch or per scenario.
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ class SwingConfig:
     foothold_forward_gain: float = 0.0
     mode: int = ControlMode.ADVANCED_TROT
     spline_type: int = SplineType.PARABOLA
+    # Terrain foothold hook: world-frame targets [B, 4, 3] -> [B, 4, 3]
+    # (e.g. a planner.foot_stepper.adjust_footholds_for_gaps partial).
+    foothold_adjust_fn: object = None
 
 
 @dataclasses.dataclass
@@ -97,7 +100,7 @@ def raibert_foothold_velocity_mode(config: SwingConfig, params: RobotParams,
     hip_v[..., 2] = 0.0
     target_v = des.velocity[:, None, :] + des.omega[:, 2, None, None] * twist
     kp = torch.as_tensor(config.swing_kp, dtype=hip.dtype, device=hip.device)
-    foothold = (hip_v * gait_config.stance_duration[:, None] * 0.5
+    foothold = (hip_v * gait_config.stance_duration[..., None] * 0.5
                 - kp * (target_v - hip_v))
     foothold = foothold + torch.stack(
         [hip[:, 0], hip[:, 1], torch.zeros_like(hip[:, 0])], dim=-1)
@@ -126,7 +129,7 @@ def heuristic_foothold_advanced(config: SwingConfig, params: RobotParams,
     dp = (target_v * gait_state.swing_time_remaining[:, :, None]
           - kp * (target_v - hip_v)
           + config.foothold_forward_gain * target_v
-          * gait_config.stance_duration[:, None])
+          * gait_config.stance_duration[..., None])
     dp = torch.clamp(dp, -config.foothold_clip, config.foothold_clip)
     dp[..., 2] = 0.0
 
@@ -185,6 +188,10 @@ def swing_step(config: SwingConfig, params: RobotParams,
     target_base = torch.where(swinging, target_base, state.foot_target_base)
     target_base = torch.where(blocked[:, :, None], probe_base, target_base)
     target_world = _rotate(r_mat, target_base) + obs.base_position[:, None, :]
+    if config.foothold_adjust_fn is not None:
+        target_world = config.foothold_adjust_fn(target_world)
+        target_base = _rotate_t(r_mat,
+                                target_world - obs.base_position[:, None, :])
 
     phi = torch.where(blocked, 1.0, gait_state.normalized_phase)
     target_rot = _rotate(r_mat, target_base)
@@ -192,7 +199,7 @@ def swing_step(config: SwingConfig, params: RobotParams,
         liftoff_world, target_rot, config.swing_height, phi)
     pos_base = _rotate_t(r_mat, pos_w)
     vel_base = _rotate_t(r_mat, vel_w) \
-        / torch.clamp(gait_config.swing_duration, min=1e-4)[:, None]
+        / torch.clamp(gait_config.swing_duration, min=1e-4)[..., None]
 
     q_des = kinematics.joint_angles_from_foot_positions(params, pos_base)
     jac = kinematics.all_leg_jacobians(params, q_des)

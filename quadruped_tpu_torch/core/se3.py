@@ -1,7 +1,7 @@
 """SE(3)/SO(3) math on batched torch tensors (port of quadruped_tpu/core/se3.py).
 
 Only what the advanced-trot rollout, the force-balance stance controller,
-the whole-body model and the WBC reach is ported. Conventions match
+the whole-body model, the WBC and the walk's pose planner reach is ported. Conventions match
 the JAX module: quaternions (w, x, y, z), RPY stored as (roll, pitch, yaw)
 with `rpy_to_rotmat(rpy) = Rz(yaw) Ry(pitch) Rx(roll)` body -> world. Every
 function broadcasts over leading axes.
@@ -24,6 +24,13 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([-y, x, zero], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def unskew(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3]; inverse of `skew` (antisymmetric part)."""
+    return torch.stack([m[..., 2, 1] - m[..., 1, 2],
+                        m[..., 0, 2] - m[..., 2, 0],
+                        m[..., 1, 0] - m[..., 0, 1]], dim=-1) * 0.5
 
 
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -150,6 +157,17 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     w = q[..., :1]
     t = 2.0 * torch.linalg.cross(qv, v)
     return v + w * t + torch.linalg.cross(qv, t)
+
+
+def so3_log(r: torch.Tensor) -> torch.Tensor:
+    """SO(3) log map: [..., 3, 3] -> [..., 3] rotation vector (the JAX
+    module's float32 formula: arccos of the clipped trace, theta/sin)."""
+    tr = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
+    theta = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+    scale = torch.where(theta > 1e-6,
+                        theta / torch.clamp(torch.sin(theta), min=1e-12),
+                        torch.ones_like(theta))
+    return unskew(r) * scale[..., None]
 
 
 def quat_error_so3(q_des: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

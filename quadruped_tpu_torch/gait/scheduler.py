@@ -1,8 +1,10 @@
 """Phase-clock gait scheduler, batched (port of quadruped_tpu/gait/scheduler.py).
 
-`GaitConfig` is one gait table shared by the batch ([4] tensors);
-`GaitState` is per scenario ([B, 4] and [B]). The update is the JAX
-module's masked arithmetic with the scenario axis written out.
+`GaitConfig` is one gait table shared by the batch ([4] leg fields, []
+scalars) or one table per scenario ([B, 4] and [B], as
+control/gait_transition.py's `active_gait` selects it); `GaitState` is per
+scenario ([B, 4] and [B]). The update is the JAX module's masked
+arithmetic with the scenario axis written out.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ class LegState:
 
 @dataclasses.dataclass
 class GaitConfig:
-    """Static gait table, shared by the batch."""
+    """Static gait table: shared by the batch ([4] leg fields, []
+    scalars) or per scenario ([B, 4] and [B])."""
 
     stance_duration: torch.Tensor     # [4] s
     duty_factor: torch.Tensor         # [4]
@@ -49,6 +52,12 @@ class GaitConfig:
         init_stance = self.initial_leg_state == LegState.STANCE
         return torch.where(init_stance, self.duty_factor,
                            1.0 - self.duty_factor)
+
+
+def per_leg(scalar: torch.Tensor) -> torch.Tensor:
+    """A scalar GaitConfig field, [] or [B], shaped to broadcast against
+    [B, 4] leg tensors."""
+    return scalar[:, None] if scalar.ndim else scalar
 
 
 def _config(stance, duty, phases, wait_time=0.3, threshold=0.5,
@@ -211,7 +220,7 @@ def gait_update(config: GaitConfig, state: GaitState, t: torch.Tensor,
     keep_early = ((state.leg_state == LegState.EARLY_CONTACT)
                   & (desired == LegState.SWING))
     leg_state = torch.where(keep_early, state.leg_state, desired)
-    detect = norm_phase >= config.contact_detection_phase_threshold
+    detect = norm_phase >= per_leg(config.contact_detection_phase_threshold)
     early = ((leg_state == LegState.SWING) & (contact > 0.5) & detect
              & allow_switch)
     leg_state = torch.where(early, LegState.EARLY_CONTACT, leg_state)

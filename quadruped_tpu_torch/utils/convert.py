@@ -12,7 +12,9 @@ which is right both for what the batch shares (`RobotParams`, the
 `FloatingBaseModel`, `ContactModel` and `WbcConfig`, whose scalar and [3]
 leaves broadcast) and for a pytree that `jax.vmap` already batched along
 its leading axis (`FbState`, `WholeBodySimState`, `WbcCommand`, the
-controller state).
+controller states: `LocomotionState` with its optional `transition`,
+`WalkState`, `PosePlannerState`, `WalkGaitState`, `GaitTransitionState`).
+A field annotated `X | None` recurses into X when it holds a value.
 """
 
 from __future__ import annotations
@@ -36,17 +38,29 @@ def _tensor(value, device, batch):
     return t
 
 
+def _dataclass_hint(hint):
+    """The dataclass named by a field's annotation (X, or X | None)."""
+    if dataclasses.is_dataclass(hint):
+        return hint
+    return next((a for a in typing.get_args(hint)
+                 if dataclasses.is_dataclass(a)), None)
+
+
 def to_torch(value, cls, *, device=None, batch: int | None = None):
     """An instance of the port's dataclass `cls` from `value`, field by
-    field (nested dataclass fields recurse into their annotated type)."""
+    field (nested dataclass fields recurse into their annotated type).
+    `value` is a dataclass or a mapping of field names, such as the nested
+    dict that `as_numpy` makes."""
     hints = typing.get_type_hints(cls)
     kwargs = {}
     for f in dataclasses.fields(cls):
-        v = getattr(value, f.name)
-        hint = hints.get(f.name)
+        v = (value.get(f.name) if isinstance(value, dict)
+             else getattr(value, f.name))
+        hint = _dataclass_hint(hints.get(f.name))
         if v is None:
             kwargs[f.name] = None
-        elif dataclasses.is_dataclass(v) and dataclasses.is_dataclass(hint):
+        elif (dataclasses.is_dataclass(v) or isinstance(v, dict)) \
+                and hint is not None:
             kwargs[f.name] = to_torch(v, hint, device=device, batch=batch)
         elif isinstance(v, (bool, int, float, str, tuple)):
             kwargs[f.name] = v
@@ -68,3 +82,30 @@ def as_numpy(value):
     if value is None or isinstance(value, (bool, int, float, str)):
         return value
     return np.asarray(value)
+
+
+def flatten(nested: dict, prefix: str) -> dict:
+    """A nested dict of arrays (as_numpy's) -> flat {prefix/a/b: array},
+    for np.savez; None leaves are dropped."""
+    out = {}
+    for k, v in nested.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}/{k}"))
+        elif v is not None:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def unflatten(arrays, prefix: str) -> dict:
+    """The inverse of `flatten` for the keys under `prefix` of a mapping
+    such as an np.load result; feed the result to `to_torch`."""
+    out: dict = {}
+    for key in arrays:
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arrays[key]
+    return out

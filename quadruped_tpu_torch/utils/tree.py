@@ -21,3 +21,13 @@ def where(mask: torch.Tensor, a, b):
         m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
         return torch.where(m, a, b)
     return a
+
+
+def index(x, idx):
+    """Field-wise x[idx] over a dataclass (nested dataclasses included):
+    the scenarios `idx` of a batch. Non-tensor fields are kept."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: index(getattr(x, f.name), idx)
+            for f in dataclasses.fields(x)})
+    return x[idx] if isinstance(x, torch.Tensor) else x

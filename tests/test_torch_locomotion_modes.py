@@ -9,8 +9,8 @@ closed loop against the JAX package.
   match it; chip_smoke.py holds the card to the same file, where no JAX is
   installed.
 * The twins of the JAX stability checks (tests/test_locomotion_modes.py) on
-  the port's runs, and the refusals of what is not ported (WALK and gait
-  transitions).
+  the port's runs. (The WALK mode and gait transitions are held in
+  tests/test_torch_gait_transition.py.)
 
 Tolerances as tests/test_torch_rollout.py: height 2e-4 m, velocity
 5e-3 m/s, joints 2e-3 rad, forces 1% m*g; touchdown anchors 1e-3 m (the
@@ -186,15 +186,6 @@ def test_position_mode_runs():
     run = _port_run("position")
     assert np.all(run["alive"] == 1.0)
     assert np.all(np.isfinite(run["base_height_trace"]))
-
-
-def test_unported_modes_refuse():
-    """WALK and gait transitions are not ported: refused."""
-    kw = dict(mpc=mpc_mod.MpcConfig(), swing=swing_mod.SwingConfig(),
-              gait=TROT("cpu"))
-    for extra in (dict(mode=ControlMode.WALK), dict(gait_b=TROT("cpu"))):
-        with pytest.raises(NotImplementedError):
-            LocomotionConfig(**kw, **extra)
 
 
 if __name__ == "__main__":

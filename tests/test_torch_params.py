@@ -154,12 +154,55 @@ def test_converter_carries_whole_body_dataclasses(name):
         assert port.qp_iters == 50 and port.friction_mu == 0.4
 
 
+@pytest.mark.parametrize("name", ["WalkState", "WalkGaitState",
+                                  "PosePlannerState", "GaitTransitionState",
+                                  "LocomotionState"])
+def test_converter_carries_walk_dataclasses(name):
+    """The walk's and the gait transition's states of the JAX package,
+    batched by jax.vmap (3 scenarios), carried across by `to_torch` with
+    exactly the same values; the LocomotionState with its `transition`
+    (a configuration with gait_b)."""
+    from quadruped_tpu.control import stance_force_balance as jfbc
+    from quadruped_tpu.control import walk_locomotion as jwl
+    from quadruped_tpu.gait import WALK as JWALK
+    from quadruped_tpu_torch.control import gait_transition as tgt
+    from quadruped_tpu_torch.control import walk_locomotion as twl
+    from quadruped_tpu_torch.gait import walk as tw
+    from quadruped_tpu_torch.planner import pose_planner as tpp
+
+    params = j_a1()
+    wcfg = jwl.WalkConfig(gait=JWALK(),
+                          force_balance=jfbc.ForceBalanceConfig())
+    lcfg = JLC(mpc=jm.MpcConfig(horizon=5, qp_iters=40),
+               swing=js.SwingConfig(), gait=JAT(), gait_b=JWALK())
+
+    def init(h):
+        sim0 = j_sim.srb_sim_init(params, body_height=h)
+        obs0 = j_sim.observe(params, sim0, jnp.ones(4, jnp.float32))
+        return jwl.walk_init(wcfg, params, obs0), j_init(lcfg, params, obs0,
+                                                         cold_start=False)
+
+    walk, loco = jax.vmap(init)(jnp.asarray([0.26, 0.27, 0.28]))
+    ref, cls = {"WalkState": (walk, twl.WalkState),
+                "WalkGaitState": (walk.gait, tw.WalkGaitState),
+                "PosePlannerState": (walk.pose, tpp.PosePlannerState),
+                "GaitTransitionState": (loco.transition,
+                                        tgt.GaitTransitionState),
+                "LocomotionState": (loco, LocomotionState)}[name]
+    port = to_torch(ref, cls)
+    _assert_same_values(port, ref)
+    if name == "LocomotionState":
+        assert port.transition.phase.shape == (3,)
+        assert port.transition.phase.dtype == torch.int32
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """With no device named, the entry points build on the card: the default
     is cuda where a card is found, and where none is they raise instead of
     building on the CPU."""
     from quadruped_tpu_torch import bench
     from quadruped_tpu_torch.benchmarks import mxu_rate
+    from quadruped_tpu_torch.benchmarks import walk as bench_walk
     from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
     from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
     from quadruped_tpu_torch.dynamics.floating_base import build_model
@@ -186,7 +229,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                 lambda: mxu_rate.measure(2, 1),
                 entry, lambda: build_model(a1_params()),
                 lambda: whole_body_init(a1_params(), 2),
-                lambda: bench_wbc.build(2), lambda: bench_wb.build(2)]
+                lambda: bench_wbc.build(2), lambda: bench_wb.build(2),
+                lambda: bench_walk.build(2)]
     for build in constructors:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
