@@ -97,7 +97,31 @@ Phases (each prints its own line; any failure raises and exits non-zero):
  15. fixtures: the walk windows of tests/data/walk_a1.npz (the JAX flat
      walk, stair climb and gap crossing resumed from checkpoints; the
      first 60 of each window's 120 ticks) and rows 0-3 of phase 14 against
-     tests/data/gait_transition_a1.npz, at the CPU tests' limits.
+     tests/data/gait_transition_a1.npz, at the CPU tests' limits;
+ 16. the robot runner (quadruped_tpu_torch/benchmarks/runner.py, the twin
+     of the JAX test_standup_then_estimated_trot): B=1024 A1 robots boot
+     sitting on the whole-body sim and run 200 ticks of the FSM's STAND_UP
+     ramp on estimates from noisy sensors (noise level 1, a
+     torch.Generator): fused_admm launched once (the boot solve; the ramp
+     shortcut skips the locomotion step), then 20 ramp ticks without the
+     shortcut, once per tick; every state finite, every scenario in
+     STAND_UP; ms per tick, ticks/s, robot-seconds per wall second, and
+     over one tick kernels and busy share;
+ 17. the runner through the switch: the fixture's checkpoint 100 ticks
+     before STAND_UP -> LOCOMOTION, tiled to B=1024, vx ~ U(0.15, 0.3),
+     noise from a torch.Generator, 250 ticks: every scenario switches on
+     the fixture's tick, at least 99% alive with final heights in [0.2,
+     0.35] m, the mean |v_est - v_true| over LOCOMOTION ticks below the JAX
+     test's 0.15 m/s, fused_admm once per MPC solve (19); times and
+     profile over one 8-tick cycle;
+ 18. the RC channel: the ground-truth runner on the SRB sim at B=2048 with
+     `rc_update`, 200 ticks; X starts the trot, and half the scenarios
+     press B, Rb, Rb (BODY_DOWN) from different ticks: SIT_DOWN entered on
+     exactly those scenarios and ticks, fused_admm once per tick that
+     solves;
+ 19. fixture: the windows of tests/data/runner_a1.npz (boot, switch, trot)
+     resumed from the JAX checkpoints at the CPU test's limits (FSM states
+     and contact flags equal).
 Every phase line ends with its wall time since the previous line. The last
 two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
@@ -197,6 +221,13 @@ WALK_WINDOW_TICKS = 60
 TRANS_BATCH = 64
 TRANS_PATTERNS = ((0, 1, 0, 1, 0), (0, 1, 0, 0, 0), (0, 0, 0, 1, 0),
                   (0, 0, 0, 0, 0), (1, 0, 0, 1, 0))
+# The robot runner (phases 16-19): B, ticks from the sitting boot, ramp
+# ticks without the shortcut, ticks from the pre-switch checkpoint (the
+# switch on its 100th tick), and the RC loop's B and ticks.
+RUNNER_BATCH = 1024
+RUNNER_BOOT_TICKS, RUNNER_MIRROR_TICKS = 200, 20
+RUNNER_SWITCH_TICKS = 250
+RC_BATCH, RC_TICKS = 2048, 200
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -296,6 +327,7 @@ def main() -> int:
     from quadruped_tpu_torch.benchmarks import walk as bench_walk
     from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
     from quadruped_tpu_torch.benchmarks import transition as bench_trans
+    from quadruped_tpu_torch.benchmarks import runner as bench_runner
     from quadruped_tpu_torch.gait.walk import SubLegState
     from quadruped_tpu_torch.planner import pose_planner
     from quadruped_tpu_torch.control import wbc as wbc_mod
@@ -1128,6 +1160,184 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"fixture gait_transition mismatch: {bad}")
 
+    # 16. The robot runner from the sitting boot, on estimates.
+    gc.collect()
+    gc.freeze()
+
+    def finite(*objs) -> bool:
+        from quadruped_tpu_torch.utils.convert import flatten, as_numpy
+        leaves = [v for o in objs for v in flatten(as_numpy(o), "").values()]
+        return all(np.isfinite(v).all() for v in leaves
+                   if v.dtype.kind == "f")
+
+    bench_runner.run(bench_runner.build(RUNNER_BATCH, dev), 2)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    loop = bench_runner.build(RUNNER_BATCH, dev)
+    t0 = time.perf_counter()
+    loop, _ = bench_runner.run(loop, RUNNER_BOOT_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_boot = counts_after("runner:boot", "fused_admm", 1)
+    if not finite(loop.sim, loop.runner):
+        raise RuntimeError("runner:boot: non-finite state")
+    all_up = bool((loop.runner.fsm.state == 1).all().item())
+    tick_ms = 1e3 * wall / RUNNER_BOOT_TICKS
+    prof = device_profile(lambda: bench_runner.run(loop, 1), 1, tick_ms)
+    mirror = bench_runner.build(RUNNER_BATCH, dev,
+                                config=bench_runner.default_config(dev,
+                                                                   False))
+    bench_runner.run(mirror, 2)                                    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    mirror = bench_runner.build(RUNNER_BATCH, dev,
+                                config=bench_runner.default_config(dev,
+                                                                   False))
+    t0 = time.perf_counter()
+    bench_runner.run(mirror, RUNNER_MIRROR_TICKS)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    launches_mirror = counts_after("runner:boot:no_shortcut", "fused_admm",
+                                   1 + RUNNER_MIRROR_TICKS)
+    mirror_ms = 1e3 * wall_m / RUNNER_MIRROR_TICKS
+    phase(f"runner:boot:B{RUNNER_BATCH}", ticks=RUNNER_BOOT_TICKS,
+          kernel_launches=launches_boot, expected_launches=1,
+          all_stand_up=all_up, wall_s=wall, ms_per_tick=tick_ms,
+          ticks_per_s=RUNNER_BATCH * RUNNER_BOOT_TICKS / wall,
+          robot_seconds_per_wall_second=RUNNER_BATCH * RUNNER_BOOT_TICKS
+          * bench_runner.DT / wall, **prof,
+          no_shortcut_ticks=RUNNER_MIRROR_TICKS,
+          no_shortcut_kernel_launches=launches_mirror,
+          no_shortcut_ms_per_tick=mirror_ms, card=json.dumps(smi))
+    if not all_up:
+        raise RuntimeError("runner:boot: a scenario left STAND_UP")
+
+    # 17. Through the STAND_UP -> LOCOMOTION switch, from the fixture.
+    runner_data = np.load(bench_runner.FIXTURE)
+    base, _, _ = bench_runner.window_loop(runner_data, ("switch",), dev)
+    rng = np.random.default_rng(0)
+    sw_vx = (0.15 + 0.15 * rng.random(RUNNER_BATCH)).astype(np.float32)
+    bench_runner.run(bench_runner.tile(base, RUNNER_BATCH, sw_vx, 1.0), 2)
+    torch.cuda.synchronize()
+    loop = bench_runner.tile(base, RUNNER_BATCH, sw_vx, 1.0, seed=1)
+    switch_at = 1500 - 1 - bench_runner.CHECKPOINTS["switch"][0]
+    solves = -(-(RUNNER_SWITCH_TICKS - switch_at) // CYCLE_TICKS)
+    reset_counts()
+    t0 = time.perf_counter()
+    loop, tr = bench_runner.run(loop, RUNNER_SWITCH_TICKS, record=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_runner = counts_after("runner:switch", "fused_admm", solves)
+    fsm_tr = tr["fsm"]
+    first = (fsm_tr == 2).int().argmax(1)
+    switched_on_tick = bool((first == switch_at).all().item()
+                            and (fsm_tr[:, switch_at:] == 2).all().item()
+                            and (fsm_tr[:, :switch_at] == 1).all().item())
+    if not finite(loop.sim, loop.runner):
+        raise RuntimeError("runner:switch: non-finite state")
+    alive_mask = bench_runner.alive(loop) > 0.5
+    alive = alive_mask.float().mean().item()
+    h = loop.sim.fb.position[alive_mask, 2]
+    loco = (fsm_tr == 2)[..., None]
+    verr = ((tr["v_est"] - tr["v_true"]).abs() * loco).sum() \
+        / (loco.sum() * 3)
+    tick_ms = 1e3 * wall / RUNNER_SWITCH_TICKS
+    prof = device_profile(lambda: bench_runner.run(loop, CYCLE_TICKS),
+                          CYCLE_TICKS, tick_ms)
+    phase(f"runner:switch:B{RUNNER_BATCH}", ticks=RUNNER_SWITCH_TICKS,
+          switch_tick=switch_at, switched_on_fixture_tick=switched_on_tick,
+          kernel_launches=launches_runner, expected_launches=solves,
+          alive_fraction=alive, final_height_min=h.min().item(),
+          final_height_max=h.max().item(),
+          mean_abs_v_est_error=verr.item(), tol_v_est=0.15, wall_s=wall,
+          ms_per_tick=tick_ms,
+          ticks_per_s=RUNNER_BATCH * RUNNER_SWITCH_TICKS / wall,
+          robot_seconds_per_wall_second=RUNNER_BATCH * RUNNER_SWITCH_TICKS
+          * bench_runner.DT / wall, **prof, card=json.dumps(smi))
+    if (not switched_on_tick or alive < 0.99 or h.min().item() < 0.2
+            or h.max().item() > 0.35 or not verr.item() < 0.15):
+        raise RuntimeError(f"runner:switch: switched on the fixture's tick "
+                           f"{switched_on_tick}, alive {alive}, heights "
+                           f"{h.min().item()}-{h.max().item()}, v_est error "
+                           f"{verr.item()}")
+
+    # 18. The RC channel on the ground-truth SRB runner.
+    from quadruped_tpu_torch.control.fsm import FsmState
+    from quadruped_tpu_torch.control.rc_mode import (BUTTONS, JoyInput,
+                                                     rc_init, rc_update)
+    from quadruped_tpu_torch.exec import RunnerConfig
+
+    rc_config = RunnerConfig(locomotion=LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev)))
+    # Even scenarios never sit; odd ones start B, Rb, Rb on tick `down`.
+    down = np.where(np.arange(RC_BATCH) % 2 == 1,
+                    20 + 10 * (np.arange(RC_BATCH) // 2 % 16), -1)
+    levels = np.zeros((RC_TICKS, len(BUTTONS), RC_BATCH), np.float32)
+    levels[0, BUTTONS.index("btn_gait")] = 1.0
+    for k, name in enumerate(("btn_stop", "btn_updown", "btn_updown")):
+        rows = np.nonzero(down >= 0)[0]
+        levels[down[rows] + 2 * k, BUTTONS.index(name), rows] = 1.0
+    levels = torch.as_tensor(levels, device=dev)
+    vx_stick = torch.full((RC_BATCH,), 0.3, device=dev)
+    zero = torch.zeros(RC_BATCH, device=dev)
+
+    def rc_loop(ticks, count_solves):
+        sim, st = bench_runner.srb_boot(rc_config, params, RC_BATCH)
+        rc = rc_init(RC_BATCH, device=dev)
+        states, solving = [], 0
+        for k in range(ticks):
+            joy = JoyInput(vx=vx_stick, vy=zero, wz=zero, **{
+                name: levels[k, i] for i, name in enumerate(BUTTONS)})
+            rc, cmd, req, _ = rc_update(rc, joy, 0.27)
+            if count_solves:
+                solving += int(mpc_mod.solve_mask(
+                    rc_config.locomotion.mpc, st.locomotion.mpc).any())
+            sim, st, _, _ = bench_runner.srb_tick(rc_config, params, sim,
+                                                  st, cmd, fsm_request=req)
+            states.append(st.fsm.state.clone())
+        return sim, st, torch.stack(states, 1), solving
+
+    rc_loop(2, False)                                             # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim, st, rc_states, solving = rc_loop(RC_TICKS, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_rc = counts_after("runner:rc", "fused_admm", 1 + solving)
+    rc_states = rc_states.cpu().numpy()
+    sat = (rc_states == FsmState.SIT_DOWN).any(1)
+    first_sit = np.where(sat, (rc_states == FsmState.SIT_DOWN).argmax(1),
+                         -1)
+    want_sit = np.where(down >= 0, down + 4, -1)
+    rc_ok = bool(np.array_equal(first_sit, want_sit)
+                 and finite(sim, st))
+    phase(f"runner:rc:B{RC_BATCH}", ticks=RC_TICKS,
+          scenarios_sat=int(sat.sum()), expected_sat=int((down >= 0).sum()),
+          sit_down_on_scripted_ticks=rc_ok, kernel_launches=launches_rc,
+          expected_launches=1 + solving, wall_s=wall,
+          ms_per_tick=1e3 * wall / RC_TICKS,
+          ticks_per_s=RC_BATCH * RC_TICKS / wall, card=json.dumps(smi))
+    if not rc_ok:
+        raise RuntimeError("runner:rc: SIT_DOWN not entered on exactly the "
+                           "scripted scenarios and ticks (or non-finite)")
+
+    # 19. The runner fixture's windows, on the card.
+    loop, rows, noise = bench_runner.window_loop(runner_data, device=dev)
+    _, tr = bench_runner.run(
+        loop, max(w for _, w in bench_runner.CHECKPOINTS.values()),
+        noise=noise, record=True)
+    for key, errs in bench_runner.window_errors(runner_data, tr,
+                                                rows).items():
+        phase(f"fixture:runner_{key}",
+              ticks=bench_runner.CHECKPOINTS[key][1],
+              fsm_and_contact="equal",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+        if bad:
+            raise RuntimeError(f"fixture runner {key} mismatch: {bad}")
+
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
@@ -1153,6 +1363,10 @@ def main() -> int:
         "launches_wbc_rollout": launches_wbc,
         "launches_whole_body": launches_wb,
         "launches_gait_transition": launches_trans,
+        "launches_runner": launches_runner,
+        "launches_runner_boot": launches_boot,
+        "launches_runner_boot_no_shortcut": launches_mirror,
+        "launches_runner_rc": launches_rc,
         "ms_boot_n192": timing["boot_n192"][0],
         "plain_ms_boot_n192": timing["boot_n192"][1],
         "bound_ms_boot_n192": timing["boot_n192"][2],

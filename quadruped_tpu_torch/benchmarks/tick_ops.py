@@ -16,7 +16,11 @@ of benchmarks/walk.py (`walk`: its first tick, which runs the pose SQP,
 counted apart from the `--ticks` that follow, which do not; the SQP's own
 calls under `pose_sqp/`); and the ADVANCED_TROT loop with a second gait
 table (`transition`, the configuration of the JAX
-test_closed_loop_trot_walk_trot). With the MPC cadence of 8 ticks,
+test_closed_loop_trot_walk_trot); and the robot runner on the whole-body
+sim (`runner`, benchmarks/runner.py: one STAND_UP tick from the sitting
+boot with the ramp shortcut and one without it, counted apart, then
+`--ticks` of the estimated trot from the fixture's trot checkpoint tiled
+to the batch). With the MPC cadence of 8 ticks,
 `--ticks 8` averages over one whole cycle. Prints one JSON line. A count, not a time: it is the same on the CPU and on the card,
 except that on the card some calls launch more than one kernel and the
 fused_admm kernel replaces its plain version's calls (chip_smoke.py counts
@@ -35,15 +39,17 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import stance_force_balance as stance_fb
 from quadruped_tpu_torch.control import swing as swing_mod
-from quadruped_tpu_torch.control import wbc
+from quadruped_tpu_torch.control import fsm, wbc
 from quadruped_tpu_torch.control.desired_state import ControlMode, TwistCommand
 from quadruped_tpu_torch.control.locomotion import LocomotionConfig
 from quadruped_tpu_torch.core import linalg, splines
 from quadruped_tpu_torch.control import walk_locomotion
+from quadruped_tpu_torch.exec import runner as exec_runner
 from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT
 from quadruped_tpu_torch.gait.scheduler import _config
 from quadruped_tpu_torch.planner import pose_planner
 from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.benchmarks import runner as bench_runner
 from quadruped_tpu_torch.benchmarks import walk as bench_walk
 from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
 from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
@@ -53,7 +59,7 @@ from quadruped_tpu_torch.solvers import cone_qp, polish, qp
 from quadruped_tpu_torch.utils import card
 
 MODES = ("velocity", "position", "advanced_trot", "wbc", "whole_body",
-         "wbc_tick", "walk", "transition")
+         "wbc_tick", "walk", "transition", "runner")
 # (module, function name, stage): innermost stages first in the stack.
 STAGES = [(cone_qp, "fused_admm", "fused_admm"),
           (walk_locomotion, "walk_gait_update", "gait"),
@@ -66,7 +72,10 @@ STAGES = [(cone_qp, "fused_admm", "fused_admm"),
           (wbc, "wbc_step", "wbc"),
           (whole_body, "whole_body_step", "whole_body_step"),
           (whole_body, "observe", "whole_body_observe"),
-          (pose_planner, "plan_target_pose_sqp", "pose_sqp")]
+          (pose_planner, "plan_target_pose_sqp", "pose_sqp"),
+          (exec_runner, "estimator_update", "estimator"),
+          (fsm, "fsm_step", "fsm"),
+          (bench_runner, "sensors", "sensors")]
 
 
 class _Counter(TorchDispatchMode):
@@ -124,6 +133,16 @@ def _advance(mode: str, batch: int, device):
             loop[0], _ = bench_walk.run(loop[0], n)
 
         return advance
+    if mode == "runner":
+        trot, _, _ = bench_runner.window_loop(
+            np.load(bench_runner.FIXTURE), ("trot",), device)
+        loop = [bench_runner.tile(trot, batch, 0.2, 1.0)]
+
+        def advance(n):
+            loop[0], _ = bench_runner.run(loop[0], n)
+
+        advance(3)
+        return advance
     if mode == "whole_body":
         loop, _ = bench_wb.run(bench_wb.build(batch, device), 3)
         return lambda n: bench_wb.run(loop, n)
@@ -171,6 +190,12 @@ def count(mode: str, batch: int, ticks: int, device) -> dict:
            "device": str(device)}
     if mode == "walk":
         out["replan_tick"] = _count(advance, 1)
+    if mode == "runner":
+        for key, skip in (("ramp_tick", True), ("ramp_tick_no_shortcut",
+                                                False)):
+            boot = bench_runner.build(batch, device, config=(
+                bench_runner.default_config(device, skip)))
+            out[key] = _count(lambda n, b=boot: bench_runner.run(b, n), 1)
     return dict(out, **_count(advance, ticks))
 
 

@@ -57,6 +57,7 @@ class DesiredStateCommand:
 
 def desired_state_init(batch: int, body_height=0.27,
                        device=None) -> DesiredStateCommand:
+    device = card.resolve(device)
     z3 = torch.zeros(batch, 3, dtype=torch.float32, device=device)
     position = z3.clone()
     position[:, 2] = torch.as_tensor(body_height, dtype=torch.float32,

@@ -21,7 +21,7 @@ import torch
 from quadruped_tpu_torch.control.desired_state import TwistCommand
 from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
                                                 LegState, gait_init)
-from quadruped_tpu_torch.utils import tree
+from quadruped_tpu_torch.utils import card, tree
 
 DECEL_TIME = 1.0
 STAND_TIME = 1.0
@@ -42,6 +42,7 @@ class GaitTransitionState:
 
 
 def gait_transition_init(batch: int, device=None) -> GaitTransitionState:
+    device = card.resolve(device)
     z = torch.zeros(batch, dtype=torch.float32, device=device)
     return GaitTransitionState(
         phase=torch.full((batch,), TransitionPhase.NONE, dtype=torch.int32,

@@ -26,7 +26,7 @@ from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
 from quadruped_tpu_torch.robots import kinematics
 from quadruped_tpu_torch.robots.params import RobotParams
 from quadruped_tpu_torch.solvers import condense, cone_qp
-from quadruped_tpu_torch.utils import tree
+from quadruped_tpu_torch.utils import card, tree
 
 
 @dataclasses.dataclass
@@ -94,6 +94,7 @@ class MpcState:
 
 def mpc_init(config: MpcConfig, batch: int, body_height=0.27,
              device=None) -> MpcState:
+    device = card.resolve(device)
     h = config.n_force_groups
 
     def z(*shape):

@@ -25,6 +25,7 @@ import torch
 from quadruped_tpu_torch.core import se3, splines
 from quadruped_tpu_torch.robots.params import RobotParams
 from quadruped_tpu_torch.solvers import qp as qp_mod
+from quadruped_tpu_torch.utils import card
 
 # Leg order around the body of the reference's polygon construction
 # (FR, RR, RL, FL).
@@ -44,6 +45,7 @@ class PosePlannerState:
 
 
 def pose_planner_init(batch: int, device=None) -> PosePlannerState:
+    device = card.resolve(device)
     z6 = torch.zeros(batch, 6, dtype=torch.float32, device=device)
     return PosePlannerState(pose_start=z6, pose_target=z6.clone(),
                             planned=torch.zeros(batch, dtype=torch.float32,

@@ -98,6 +98,14 @@ def all_leg_jacobians(params: RobotParams, q: torch.Tensor) -> torch.Tensor:
                         params.lower_length)
 
 
+def foot_velocities_in_base_frame(params: RobotParams, q: torch.Tensor,
+                                  dq: torch.Tensor) -> torch.Tensor:
+    """[..., 12] q, dq -> [..., 4, 3] foot velocities in base frame."""
+    j = all_leg_jacobians(params, q)
+    dql = dq.reshape(dq.shape[:-1] + (4, 3))
+    return torch.einsum("...lij,...lj->...li", j, dql)
+
+
 def damped_jacobian_solve(jac: torch.Tensor, v: torch.Tensor,
                           damping: float = 1e-3) -> torch.Tensor:
     """Damped least-squares J^-1 v for [..., 3, 3] leg Jacobians, through

@@ -13,8 +13,12 @@ which is right both for what the batch shares (`RobotParams`, the
 leaves broadcast) and for a pytree that `jax.vmap` already batched along
 its leading axis (`FbState`, `WholeBodySimState`, `WbcCommand`, the
 controller states: `LocomotionState` with its optional `transition`,
-`WalkState`, `PosePlannerState`, `WalkGaitState`, `GaitTransitionState`).
-A field annotated `X | None` recurses into X when it holds a value.
+`WalkState`, `PosePlannerState`, `WalkGaitState`, `GaitTransitionState`,
+`RunnerState` with its `EstimatorState`, `ControlFsmState`, `RcState`,
+`CmuKfState`, `RawSensors`). A field annotated `X | None` recurses into X
+when it holds a value; a JAX NamedTuple (`MovingWindowState`) maps field
+for field onto the port's dataclass of that name. Leaves land on the card
+unless `device` names another device.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import typing
 
 import numpy as np
 import torch
+
+from quadruped_tpu_torch.utils import card
 
 
 def _tensor(value, device, batch):
@@ -46,11 +52,17 @@ def _dataclass_hint(hint):
                  if dataclasses.is_dataclass(a)), None)
 
 
+def _is_namedtuple(value) -> bool:
+    return isinstance(value, tuple) and hasattr(value, "_fields")
+
+
 def to_torch(value, cls, *, device=None, batch: int | None = None):
     """An instance of the port's dataclass `cls` from `value`, field by
     field (nested dataclass fields recurse into their annotated type).
-    `value` is a dataclass or a mapping of field names, such as the nested
-    dict that `as_numpy` makes."""
+    `value` is a dataclass, a NamedTuple or a mapping of field names, such
+    as the nested dict that `as_numpy` makes; on the card unless `device`
+    says otherwise."""
+    device = card.resolve(device)
     hints = typing.get_type_hints(cls)
     kwargs = {}
     for f in dataclasses.fields(cls):
@@ -59,8 +71,8 @@ def to_torch(value, cls, *, device=None, batch: int | None = None):
         hint = _dataclass_hint(hints.get(f.name))
         if v is None:
             kwargs[f.name] = None
-        elif (dataclasses.is_dataclass(v) or isinstance(v, dict)) \
-                and hint is not None:
+        elif (dataclasses.is_dataclass(v) or isinstance(v, dict)
+              or _is_namedtuple(v)) and hint is not None:
             kwargs[f.name] = to_torch(v, hint, device=device, batch=batch)
         elif isinstance(v, (bool, int, float, str, tuple)):
             kwargs[f.name] = v
@@ -75,7 +87,7 @@ def as_numpy(value):
     if dataclasses.is_dataclass(value):
         return {f.name: as_numpy(getattr(value, f.name))
                 for f in dataclasses.fields(value)}
-    if isinstance(value, tuple) and hasattr(value, "_fields"):
+    if _is_namedtuple(value):
         return {k: as_numpy(getattr(value, k)) for k in value._fields}
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()

@@ -10,7 +10,9 @@ import torch
 def where(mask: torch.Tensor, a, b):
     """Field-wise `torch.where(mask, a, b)` over two dataclasses of the same
     type (nested dataclasses included). mask is [B] bool; every tensor
-    field has the leading scenario axis. Non-tensor fields come from `a`.
+    field has the leading scenario axis. Non-tensor fields come from `a`,
+    so an optional state that is None in both stays None (the runner's
+    hold of `LocomotionState` outside LOCOMOTION, `transition` included).
     This is what `lax.cond` or a tree-mapped `jnp.where` does under
     `jax.vmap` in the JAX package."""
     if dataclasses.is_dataclass(a):

@@ -40,8 +40,10 @@ def _jax_entry():
 
 def _carried(args):
     ctrl, obs, cmd, t = args
-    return (to_torch(ctrl, LocomotionState), to_torch(obs, RobotObservation),
-            to_torch(cmd, TwistCommand), torch.as_tensor(np.array(t)))
+    return (to_torch(ctrl, LocomotionState, device="cpu"),
+            to_torch(obs, RobotObservation, device="cpu"),
+            to_torch(cmd, TwistCommand, device="cpu"),
+            torch.as_tensor(np.array(t)))
 
 
 def _max_err(got, want) -> float:

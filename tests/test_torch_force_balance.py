@@ -430,7 +430,7 @@ def case_com_adjuster():
     feet = (np.array([[0.18, -0.13, -0.27], [0.18, 0.13, -0.27],
                       [-0.18, -0.13, -0.27], [-0.18, 0.13, -0.27]])
             + rng.normal(size=(16, 4, 3)) * 0.03).astype(np.float32)
-    tg = to_torch(jg, GaitState)
+    tg = to_torch(jg, GaitState, device="cpu")
     return [(t_com.contact_weights(tg), j_com.contact_weights(jg), {}),
             (t_com.com_position_in_base_frame(tg, tt(feet)),
              jax.vmap(j_com.com_position_in_base_frame)(jg, feet), {})]

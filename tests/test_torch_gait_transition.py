@@ -86,7 +86,7 @@ SIM_FIELDS = transition.SIM_FIELDS
 def _unit_port():
     b = len(REQUESTS)
     a, bnd = TROT("cpu"), BOUND("cpu")
-    ts = gt.gait_transition_init(b)
+    ts = gt.gait_transition_init(b, "cpu")
     gs = gait_init(a, b)
     cmd = TwistCommand.constant(vx=np.asarray([0.4, 0.3, 0.4, 0.3],
                                               np.float32), device="cpu")

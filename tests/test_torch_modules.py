@@ -237,7 +237,7 @@ def case_gait():
     t = np.float32(0.102)
     jg = jax.vmap(lambda g, c: j_sched.gait_update(cfg.gait, g, t, c))(
         ctrl.gait, contact)
-    tg_in = to_torch(ctrl.gait, t_sched.GaitState)
+    tg_in = to_torch(ctrl.gait, t_sched.GaitState, device="cpu")
     tg = t_sched.gait_update(ADVANCED_TROT("cpu"), tg_in, torch.full((B,), t),
                              tt(contact))
     jt = jax.vmap(lambda g: j_sched.predicted_contact_table(
@@ -256,16 +256,16 @@ def case_desired_state():
                gait_switch=jnp.zeros(B, jnp.float32))
     jd = jax.vmap(j_des.desired_state_update)(ctrl.command, jcmd)
     td = t_des.desired_state_update(
-        to_torch(ctrl.command, t_des.DesiredStateCommand),
-        to_torch(jcmd, t_des.TwistCommand))
+        to_torch(ctrl.command, t_des.DesiredStateCommand, device="cpu"),
+        to_torch(jcmd, t_des.TwistCommand, device="cpu"))
     return [(as_numpy(td), as_numpy(jd))], {}
 
 
 def _port_inputs():
     cfg, sim, ctrl, _ = _carry()
     jobs = _obs(sim)
-    return (to_torch(jobs, RobotObservation),
-            to_torch(ctrl, LocomotionState), jobs)
+    return (to_torch(jobs, RobotObservation, device="cpu"),
+            to_torch(ctrl, LocomotionState, device="cpu"), jobs)
 
 
 def case_swing():
@@ -342,7 +342,7 @@ def case_srb_sim_step():
         j_a1(), s, f, st, q, dq, sm, 0.002))(sim, forces, stance, q_des,
                                              dq_des, swing_mask)
     tnew = t_sim.srb_sim_step(a1_params("cpu"),
-                              to_torch(sim, t_sim.SrbSimState),
+                              to_torch(sim, t_sim.SrbSimState, device="cpu"),
                               tt(forces), tt(stance), tt(q_des), tt(dq_des),
                               tt(swing_mask), 0.002)
     # Stance IK + damped Jacobian solve: joint velocities to 1e-3 rad/s.

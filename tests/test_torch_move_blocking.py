@@ -175,8 +175,9 @@ def _cold_start(name):
 
 
 def _port(obs, des, gait):
-    return (to_torch(obs, RobotObservation),
-            to_torch(des, DesiredStateCommand), to_torch(gait, GaitState))
+    return (to_torch(obs, RobotObservation, device="cpu"),
+            to_torch(des, DesiredStateCommand, device="cpu"),
+            to_torch(gait, GaitState, device="cpu"))
 
 
 def _compare_state(got, want):
@@ -203,7 +204,7 @@ def test_mpc_cold_start_matches_jax(name):
     tobs, tdes, tgait = _port(obs, des, gait)
     got = t_mpc.mpc_cold_start(tcfg, a1_params("cpu"), ADVANCED_TROT("cpu"),
                                tgait,
-                               t_mpc.mpc_init(tcfg, B), tobs, tdes)
+                               t_mpc.mpc_init(tcfg, B, device="cpu"), tobs, tdes)
     assert got.warm_primal.shape == (B, 12 * tcfg.n_force_groups)
     _compare_state(got, want)
 
@@ -231,6 +232,6 @@ def test_mpc_solve_matches_jax(name):
         jcfg, params, s, o, d, c, r, h)))(js, obs, des, table, rpy_comp,
                                           height)
     tobs, tdes, _ = _port(obs, des, gait)
-    got = t_mpc.mpc_solve(tcfg, a1_params("cpu"), to_torch(js, t_mpc.MpcState),
+    got = t_mpc.mpc_solve(tcfg, a1_params("cpu"), to_torch(js, t_mpc.MpcState, device="cpu"),
                           tobs, tdes, tt(table), tt(rpy_comp), tt(height))
     _compare_state(got, want)

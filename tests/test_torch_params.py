@@ -32,7 +32,7 @@ def test_a1_params_equal_jax():
                                   np.asarray(ref.signed_hip_length))
     np.testing.assert_array_equal(port.max_force.numpy(),
                                   np.asarray(ref.max_force))
-    converted = to_torch(ref, RobotParams)
+    converted = to_torch(ref, RobotParams, device="cpu")
     for f in dataclasses.fields(RobotParams):
         assert torch.equal(getattr(converted, f.name), getattr(port, f.name))
 
@@ -78,7 +78,7 @@ def test_converter_round_trips_vmapped_locomotion_state():
         return j_init(cfg, params, obs0)
 
     state = jax.jit(jax.vmap(init))(jnp.asarray([0.26, 0.27, 0.28]))
-    port = to_torch(state, LocomotionState)
+    port = to_torch(state, LocomotionState, device="cpu")
     assert port.mpc.warm_dual.shape == (3, 20, 5)
     assert port.gait.leg_state.dtype == torch.int32
     assert port.mpc.forces_world.dtype == torch.float32
@@ -92,7 +92,7 @@ def test_converter_round_trips_vmapped_locomotion_state():
             np.testing.assert_array_equal(got[key], value, err_msg=key)
     # Broadcasting one scenario to a batch.
     single = to_torch(jax.tree.map(lambda a: a[0], state), LocomotionState,
-                      batch=5)
+                      batch=5, device="cpu")
     assert single.swing.foot_target_world.shape == (5, 4, 3)
     assert torch.equal(single.mpc.warm_primal[4], port.mpc.warm_primal[0])
 
@@ -144,7 +144,7 @@ def test_converter_carries_whole_body_dataclasses(name):
         "WbcConfig": (jwbc.WbcConfig(), twbc.WbcConfig),
         "WbcCommand": (jax.vmap(command)(heights), twbc.WbcCommand),
     }[name]
-    port = to_torch(ref, cls)
+    port = to_torch(ref, cls, device="cpu")
     _assert_same_values(port, ref)
     if name in ("FbState", "WholeBodySimState", "WbcCommand"):
         leaf = port.fb.q if name == "WholeBodySimState" else (
@@ -189,7 +189,7 @@ def test_converter_carries_walk_dataclasses(name):
                 "GaitTransitionState": (loco.transition,
                                         tgt.GaitTransitionState),
                 "LocomotionState": (loco, LocomotionState)}[name]
-    port = to_torch(ref, cls)
+    port = to_torch(ref, cls, device="cpu")
     _assert_same_values(port, ref)
     if name == "LocomotionState":
         assert port.transition.phase.shape == (3,)
@@ -235,3 +235,44 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert a1_params("cpu").total_mass.device.type == "cpu"
+
+
+def test_state_constructors_default_to_the_card(monkeypatch):
+    """The state constructors and the converter follow the same rule:
+    without a card and without a device they raise; with device="cpu" they
+    build on the CPU."""
+    from quadruped_tpu_torch.benchmarks import runner as bench_runner
+    from quadruped_tpu_torch.control import gait_transition, mpc
+    from quadruped_tpu_torch.control.desired_state import desired_state_init
+    from quadruped_tpu_torch.control.rc_mode import JoyInput, rc_init
+    from quadruped_tpu_torch.estimation.container import (EstimatorConfig,
+                                                          estimator_init)
+    from quadruped_tpu_torch.estimation.velocity import \
+        VelocityEstimatorConfig
+    from quadruped_tpu_torch.planner.pose_planner import pose_planner_init
+
+    ref = j_a1()
+    est = EstimatorConfig(velocity=VelocityEstimatorConfig())
+    builds = {
+        "mpc_init": lambda d: mpc.mpc_init(mpc.MpcConfig(), 2,
+                                           device=d).warm_primal,
+        "desired_state_init": lambda d: desired_state_init(
+            2, device=d).position,
+        "pose_planner_init": lambda d: pose_planner_init(2, d).pose_target,
+        "gait_transition_init": lambda d: gait_transition.gait_transition_init(
+            2, d).phase,
+        "to_torch": lambda d: to_torch(ref, RobotParams,
+                                       device=d).total_mass,
+        "estimator_init": lambda d: estimator_init(
+            est, 2, device=d).velocity.cov,
+        "rc_init": lambda d: rc_init(2, device=d).mode,
+        "JoyInput.neutral": lambda d: JoyInput.neutral(vx=0.1,
+                                                       device=d).vx,
+        "benchmarks.runner.build": lambda d: bench_runner.build(
+            2, d).runner.t,
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, build in builds.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(None)
+        assert build("cpu").device.type == "cpu", name

@@ -209,7 +209,7 @@ def test_sqp_runs_only_when_a_scenario_latches(monkeypatch):
     b = 2
     args = {k: T(np.asarray(v, np.float32))
             for k, v in _update_args(b).items()}
-    state = pp.pose_planner_init(b)
+    state = pp.pose_planner_init(b, "cpu")
     state = pp.pose_planner_update(state, a1_params("cpu"),
                                    replan=torch.zeros(b), **args)
     state = pp.pose_planner_update(state, a1_params("cpu"),

@@ -135,7 +135,8 @@ def _jax_inputs():
 def _port_inputs():
     obs, cmd, _, _ = _jax_inputs()
     params = a1_params("cpu")
-    return (to_torch(obs, RobotObservation), to_torch(cmd, wbc.WbcCommand),
+    return (to_torch(obs, RobotObservation, device="cpu"),
+            to_torch(cmd, wbc.WbcCommand, device="cpu"),
             params, fb.build_model(params))
 
 

@@ -125,7 +125,7 @@ def _fb_pair(arrays):
     from quadruped_tpu.dynamics import floating_base as jfb
 
     jstate = jfb.FbState(**{k: jnp.asarray(v) for k, v in arrays.items()})
-    return jstate, to_torch(jstate, fb.FbState)
+    return jstate, to_torch(jstate, fb.FbState, device="cpu")
 
 
 def _max_err(got, want) -> float:
@@ -261,7 +261,7 @@ def test_build_model_matches_jax(field):
     tmodel = fb.build_model(a1_params("cpu"))
     np.testing.assert_array_equal(getattr(tmodel, field).numpy(),
                                   np.asarray(getattr(jmodel, field)))
-    carried = to_torch(jmodel, fb.FloatingBaseModel)
+    carried = to_torch(jmodel, fb.FloatingBaseModel, device="cpu")
     assert torch.equal(getattr(carried, field), getattr(tmodel, field))
 
 
