@@ -121,7 +121,28 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      solves;
  19. fixture: the windows of tests/data/runner_a1.npz (boot, switch, trot)
      resumed from the JAX checkpoints at the CPU test's limits (FSM states
-     and contact flags equal).
+     and contact flags equal);
+ 20. the heterogeneous fleet (quadruped_tpu_torch/benchmarks/fleet.py, the
+     twin of the JAX examples/example_fleet_sweep.py): the A1, Go1,
+     Aliengo and Lite3 at vx 0, 0.2, 0.4, 0.6 (stacked parameters, 16
+     scenarios) tiled to B=2048, `MpcConfig(horizon=5, qp_iters=30)`, 500
+     ticks of `rollout`: fused_admm once per batched MPC solve (64), at
+     least 99% alive for each robot, final heights within 0.06 m of the
+     command (and of their own body height for the A1, Go1 and Lite3),
+     the 128 copies of each scenario within 1e-3 m; ms per tick, ticks/s,
+     robot-seconds per wall second, kernels per tick and busy share;
+ 21. fused_admm on an MPC batch captured from the mixed fleet (per-row
+     force caps) and on the same batch with mu drawn per row, against its
+     plain version (the limits of phase 2), timed in turns with a batch
+     of the same shape from an A1-only fleet;
+ 22. a B=64 fleet (the 16-scenario grid x4), 100 ticks, against each
+     robot run alone with one-robot parameters;
+ 23. `utils.checkpoint.checkpointed_rollout` of the B=64 fleet in two
+     50-tick segments, called again after the first as after a crash: the
+     resumed carry bitwise the uninterrupted run's; a trace save / load
+     round trip (`utils.trace`);
+ 24. fixture: the JAX fleet and multi-gait rollouts of
+     tests/data/fleet_a1.npz at the CPU test's limits.
 Every phase line ends with its wall time since the previous line. The last
 two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
@@ -132,8 +153,10 @@ before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -228,6 +251,23 @@ RUNNER_BATCH = 1024
 RUNNER_BOOT_TICKS, RUNNER_MIRROR_TICKS = 200, 20
 RUNNER_SWITCH_TICKS = 250
 RC_BATCH, RC_TICKS = 2048, 200
+# The fleet (phases 20-24): the example's sweep tiled to B=2048 over its 500
+# ticks; the JAX test's bound on final heights, 0.06 m: off the commanded
+# 0.27 m for every robot, and off each robot's own body height for the
+# robots of the JAX test (the Aliengo, nominally 0.37 m, stands where the
+# grid's command puts it, as in the JAX package); the copies of one
+# scenario must agree. The B=64 fleet against each robot alone over 100
+# ticks, at 10x the spread of JAX's own one-float32-step nudges over the
+# 150-tick fleet window (tests/test_torch_scenarios.py; a wrong broadcast
+# moves heights by centimetres and forces by tens of newtons).
+FLEET_REPEATS, FLEET_TICKS = 128, 500
+FLEET_GRID = 16              # 4 robots x 4 speeds
+FLEET_BATCH = FLEET_GRID * FLEET_REPEATS
+FLEET_HEIGHT_TOL, FLEET_COPY_TOL = 0.06, 1e-3
+FLEET_JAX_TEST_ROBOTS = ("a1", "go1", "lite3")
+FLEET_SINGLE_BATCH, FLEET_SINGLE_TICKS = 64, 100
+FLEET_SINGLE_TOL = {"base_height_trace": 7.3e-5, "vel_trace": 1.9e-3,
+                    "forces_trace": 7.6, "q": 6.7e-4}
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -331,7 +371,12 @@ def main() -> int:
     from quadruped_tpu_torch.gait.walk import SubLegState
     from quadruped_tpu_torch.planner import pose_planner
     from quadruped_tpu_torch.control import wbc as wbc_mod
-    from quadruped_tpu_torch.utils import card, cuda_build
+    from quadruped_tpu_torch.utils import card, checkpoint, cuda_build, tree
+    from quadruped_tpu_torch.utils.trace import (compare_traces, load_trace,
+                                                 save_trace)
+    from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
+    from quadruped_tpu_torch.robots import named_params
+    from quadruped_tpu_torch.gait import named_gait
 
     wrappers = {"fused_admm": fused_admm.fused_admm,
                 "fused_full_solve": fused_full_solve.fused_full_solve,
@@ -1165,10 +1210,9 @@ def main() -> int:
     gc.freeze()
 
     def finite(*objs) -> bool:
-        from quadruped_tpu_torch.utils.convert import flatten, as_numpy
-        leaves = [v for o in objs for v in flatten(as_numpy(o), "").values()]
-        return all(np.isfinite(v).all() for v in leaves
-                   if v.dtype.kind == "f")
+        return all(torch.isfinite(v).all().item()
+                   for o in objs for _, v in tree.leaves(o)
+                   if isinstance(v, torch.Tensor) and v.is_floating_point())
 
     bench_runner.run(bench_runner.build(RUNNER_BATCH, dev), 2)   # warm-up
     torch.cuda.synchronize()
@@ -1338,6 +1382,190 @@ def main() -> int:
         if bad:
             raise RuntimeError(f"fixture runner {key} mismatch: {bad}")
 
+    # 20. The heterogeneous fleet: the twin of the JAX example's sweep at
+    # B=2048 (the 16-scenario grid tiled 128 times).
+    fleet = bench_fleet.build(FLEET_REPEATS, dev)
+    bench_fleet.run(fleet, 2)                                     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fres = bench_fleet.run(fleet, FLEET_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fleet_solves = bench_fleet.mpc_solves(fleet.config, FLEET_TICKS)
+    launches_fleet = counts_after("fleet", "fused_admm", fleet_solves)
+    if not finite(fres):
+        raise RuntimeError("fleet: non-finite state")
+    robots = bench_fleet.per_robot(fleet, fres)
+    spread = bench_fleet.copy_spread(fleet, fres)
+    alive_rows = fres.alive > 0.5
+    final_h = fres.base_height_trace[:, -1]
+    dh_cmd = (final_h - fleet.cmd.body_height)[alive_rows].abs().max().item()
+    dh_own = {r: (final_h - fleet.params.body_height)[
+        alive_rows & torch.tensor([x == r for x in fleet.robots],
+                                  device=dev)].abs().max().item()
+        for r in bench_fleet.ROBOTS}
+    dh_bad = {r: d for r, d in dh_own.items()
+              if r in FLEET_JAX_TEST_ROBOTS and not d <= FLEET_HEIGHT_TOL}
+    fleet_ms = 1e3 * wall / FLEET_TICKS
+    carry = rollout_mod.rollout_init(fleet.config, fleet.params, FLEET_BATCH)
+    prof = device_profile(lambda: rollout_mod.rollout_segment(
+        fleet.config, fleet.params, fleet.cmd, carry, CYCLE_TICKS),
+        CYCLE_TICKS, fleet_ms)
+    phase(f"fleet:B{FLEET_BATCH}", ticks=FLEET_TICKS,
+          kernel_launches=launches_fleet, mpc_solves=fleet_solves,
+          wall_s=wall, ms_per_tick=fleet_ms,
+          ticks_per_s=FLEET_BATCH * FLEET_TICKS / wall,
+          robot_seconds_per_wall_second=FLEET_BATCH * FLEET_TICKS
+          * bench_fleet.DT / wall, **prof,
+          alive=json.dumps({k: r["alive"] for k, r in robots.items()}),
+          final_vx=json.dumps({k: round(r["final_vx"], 4)
+                               for k, r in robots.items()}),
+          final_height=json.dumps({k: round(r["final_height"], 4)
+                                   for k, r in robots.items()}),
+          max_abs_final_height_minus_commanded=dh_cmd,
+          max_abs_final_height_minus_own_body_height=json.dumps(
+              {k: round(v, 4) for k, v in dh_own.items()}),
+          max_copy_difference_m=spread, card=json.dumps(smi))
+    if (min(r["alive"] for r in robots.values()) < 0.99
+            or not dh_cmd <= FLEET_HEIGHT_TOL or dh_bad
+            or not spread <= FLEET_COPY_TOL):
+        raise RuntimeError(f"fleet: alive {robots}, final heights off the "
+                           f"command by {dh_cmd} m and off their own body "
+                           f"height by {dh_own} (limit {FLEET_HEIGHT_TOL}), "
+                           f"copies {spread} m apart (limit "
+                           f"{FLEET_COPY_TOL})")
+
+    # 21. K1 on a batch captured from the mixed fleet (per-row force caps
+    # and mu) against its plain version, and its time beside the same
+    # batch shape captured from an A1-only fleet.
+    def capture_warm_solve(f):
+        """(ConeQP, solve kwargs) of the first warm MPC solve of `f`."""
+        got = []
+        solve = cone_qp.solve
+        cone_qp.solve = lambda prob, **kw: got.append((prob, kw)) or \
+            solve(prob, **kw)
+        try:
+            c = rollout_mod.rollout_init(f.config, f.params, FLEET_BATCH)
+            rollout_mod.rollout_segment(f.config, f.params, f.cmd, c,
+                                        CYCLE_TICKS + 1)
+        finally:
+            cone_qp.solve = solve
+        return got[-1]
+
+    a1_fleet = bench_fleet.build(FLEET_REPEATS * len(bench_fleet.ROBOTS),
+                                 dev, robots=("a1",))
+    k1_fleet = {}
+    for name, f in (("mixed", fleet), ("a1_only", a1_fleet)):
+        prob, kw = capture_warm_solve(f)
+        inp = cone_qp.admm_inputs(prob, rho=kw["rho"], x0=kw["x0"],
+                                  y0=kw["y0"])
+        k_kw = dict(iters=kw["iters"], sigma=cone_qp.SIGMA,
+                    alpha=kw["alpha"], accel_restart=kw["accel_restart"])
+        k1_fleet[name] = (prob, kw, inp, k_kw)
+    prob, kw, inp, k_kw = k1_fleet["mixed"]
+    args = inp[:8]
+    dx, dy = admm_vs_plain("fleet mixed", args, k_kw)
+    rng = np.random.default_rng(0)
+    mu_rows = torch.as_tensor(rng.uniform(0.3, 0.9, FLEET_BATCH)
+                              .astype(np.float32), device=dev)
+    mu_inp = cone_qp.admm_inputs(dataclasses.replace(prob, mu=mu_rows),
+                                 rho=kw["rho"], x0=kw["x0"], y0=kw["y0"])
+    dx_mu, dy_mu = admm_vs_plain("fleet per-row mu", mu_inp[:8], k_kw)
+    # Timed in turns (mixed, A1 only, A1 only, mixed): the two batches'
+    # difference apart from the order of the timings.
+    a1_args = k1_fleet["a1_only"][2][:8]
+    turns = [card.time_ms(lambda a=a: fused_admm.fused_admm(*a, **k_kw), 20)
+             for a in (args, a1_args, a1_args, args)]
+    fleet_k1_ms = (turns[0] + turns[3]) / 2
+    a1_k1_ms = (turns[1] + turns[2]) / 2
+    fleet_plain_ms = card.time_ms(
+        lambda: fused_admm.fused_admm_reference(*args, **k_kw), 3)
+    nbytes, ops = admm_work(FLEET_BATCH, args[1].shape[1], k_kw["iters"])
+    fleet_bound = bound(nbytes, ops)
+    caps = prob.fz_hi.amax(1)
+    phase("fleet:k1_vs_plain", batch=FLEET_BATCH, n=args[1].shape[1],
+          iters=k_kw["iters"],
+          force_caps_N=json.dumps(sorted({round(v, 3) for v in
+                                          caps.tolist()})),
+          mu=json.dumps(sorted(set(prob.mu.tolist()))), max_abs_dx=dx,
+          max_abs_dy=dy, per_row_mu_max_abs_dx=dx_mu,
+          per_row_mu_max_abs_dy=dy_mu, tol=admm_tol,
+          kernel_ms_mixed=fleet_k1_ms, kernel_ms_a1_only=a1_k1_ms,
+          kernel_ms_turns=json.dumps([round(t, 5) for t in turns]),
+          plain_ms=fleet_plain_ms, bound_ms=fleet_bound[0],
+          bound_by=fleet_bound[1], share_of_bound=fleet_bound[0]
+          / fleet_k1_ms, card=json.dumps(smi))
+
+    # 22. Each robot of a B=64 fleet against the same robot run alone with
+    # one-robot parameters.
+    vs = bench_fleet.build(FLEET_SINGLE_BATCH // FLEET_GRID, dev)
+    vres = bench_fleet.run(vs, FLEET_SINGLE_TICKS)
+    errs = dict.fromkeys(FLEET_SINGLE_TOL, 0.0)
+    for r in bench_fleet.ROBOTS:
+        rows = torch.tensor([x == r for x in vs.robots], device=dev)
+        vx = vs.cmd.linear[rows, 0]
+        alone = rollout_mod.rollout(
+            bench_fleet.config(named_gait(bench_fleet.GAITS[0], dev)),
+            named_params(r, dev),
+            TwistCommand.constant(vx=vx, device=dev), FLEET_SINGLE_TICKS)
+        for k in FLEET_SINGLE_TOL:
+            a = getattr(alone, k) if k != "q" else alone.sim.q
+            b = getattr(vres, k)[rows] if k != "q" else vres.sim.q[rows]
+            errs[k] = max(errs[k], (a - b).abs().max().item())
+    hold(f"fleet:vs_single:B{FLEET_SINGLE_BATCH}", errs,
+         dict.fromkeys(errs, 0.0), FLEET_SINGLE_TOL,
+         ticks=FLEET_SINGLE_TICKS, robots=json.dumps(bench_fleet.ROBOTS))
+
+    # 23. Checkpointed rollout of the B=64 fleet over two segments,
+    # interrupted after the first, against the uninterrupted run; then a
+    # trace round trip.
+    ckpt_dir = ROOT / "quadruped_tpu_torch" / "_build" / "fleet_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    seg = FLEET_SINGLE_TICKS // 2
+    checkpoint.checkpointed_rollout(vs.config, vs.params, vs.cmd, seg, seg,
+                                    str(ckpt_dir))
+    resumed, last = checkpoint.checkpointed_rollout(
+        vs.config, vs.params, vs.cmd, 2 * seg, seg, str(ckpt_dir))
+    carry = rollout_mod.rollout_init(vs.config, vs.params,
+                                     FLEET_SINGLE_BATCH)
+    for _ in range(2):
+        carry, last_u = rollout_mod.rollout_segment(vs.config, vs.params,
+                                                    vs.cmd, carry, seg)
+    a, b = (dict(tree.leaves(x)) for x in (resumed, carry))
+    bitwise = a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+    trace_path = str(ckpt_dir / "trace.npz")
+    save_trace(trace_path, last, meta={"ticks": seg})
+    back, meta = load_trace(trace_path, like=last)
+    trace_diff = compare_traces(last, back, atol=0.0)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    phase(f"fleet:checkpoint:B{FLEET_SINGLE_BATCH}", segments=2,
+          segment_ticks=seg, resumed_step=resumed.step,
+          bitwise_equal_uninterrupted=bitwise,
+          last_segment_equal=bool(torch.equal(last.base_height_trace,
+                                              last_u.base_height_trace)),
+          trace_roundtrip_max_abs=trace_diff["max"],
+          trace_meta=json.dumps(meta))
+    if not (bitwise and resumed.step == 2 * seg
+            and trace_diff["within_tol"]):
+        raise RuntimeError("fleet:checkpoint: the resumed run is not bitwise "
+                           "the uninterrupted one, or the trace round trip "
+                           "changed it")
+
+    # 24. The JAX fleet fixture (tests/data/fleet_a1.npz), on the card.
+    fleet_data = np.load(bench_fleet.FIXTURE)
+    for case in sorted(bench_fleet.GRIDS):
+        got = bench_fleet.fixture_run(case, dev)
+        errs = bench_fleet.fixture_errors(got, fleet_data, case)
+        phase(f"fixture:fleet_{case}", ticks=bench_fleet.FIXTURE_TICKS,
+              alive="equal",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+        if bad:
+            raise RuntimeError(f"fixture fleet {case} mismatch: {bad}")
+
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
@@ -1367,6 +1595,10 @@ def main() -> int:
         "launches_runner_boot": launches_boot,
         "launches_runner_boot_no_shortcut": launches_mirror,
         "launches_runner_rc": launches_rc,
+        "launches_fleet": launches_fleet,
+        "ms_fleet_mixed": fleet_k1_ms, "ms_fleet_a1_only": a1_k1_ms,
+        "plain_ms_fleet": fleet_plain_ms, "bound_ms_fleet": fleet_bound[0],
+        "max_abs_err_fleet": max(dx, dy, dx_mu, dy_mu),
         "ms_boot_n192": timing["boot_n192"][0],
         "plain_ms_boot_n192": timing["boot_n192"][1],
         "bound_ms_boot_n192": timing["boot_n192"][2],

@@ -20,7 +20,10 @@ test_closed_loop_trot_walk_trot); and the robot runner on the whole-body
 sim (`runner`, benchmarks/runner.py: one STAND_UP tick from the sitting
 boot with the ramp shortcut and one without it, counted apart, then
 `--ticks` of the estimated trot from the fixture's trot checkpoint tiled
-to the batch). With the MPC cadence of 8 ticks,
+to the batch); and the heterogeneous fleet of benchmarks/fleet.py
+(`fleet`: the A1, Go1, Aliengo and Lite3 at four speeds, stacked
+parameters, the 16-scenario grid tiled to `--batch` rounded up to a
+multiple of 16). With the MPC cadence of 8 ticks,
 `--ticks 8` averages over one whole cycle. Prints one JSON line. A count, not a time: it is the same on the CPU and on the card,
 except that on the card some calls launch more than one kernel and the
 fused_admm kernel replaces its plain version's calls (chip_smoke.py counts
@@ -49,17 +52,18 @@ from quadruped_tpu_torch.gait import ADVANCED_TROT, TROT
 from quadruped_tpu_torch.gait.scheduler import _config
 from quadruped_tpu_torch.planner import pose_planner
 from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
 from quadruped_tpu_torch.benchmarks import runner as bench_runner
 from quadruped_tpu_torch.benchmarks import walk as bench_walk
 from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
 from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
 from quadruped_tpu_torch.sim import rollout as rollout_mod
-from quadruped_tpu_torch.sim import whole_body
+from quadruped_tpu_torch.sim import srb_sim, whole_body
 from quadruped_tpu_torch.solvers import cone_qp, polish, qp
 from quadruped_tpu_torch.utils import card
 
 MODES = ("velocity", "position", "advanced_trot", "wbc", "whole_body",
-         "wbc_tick", "walk", "transition", "runner")
+         "wbc_tick", "walk", "transition", "runner", "fleet")
 # (module, function name, stage): innermost stages first in the stack.
 STAGES = [(cone_qp, "fused_admm", "fused_admm"),
           (walk_locomotion, "walk_gait_update", "gait"),
@@ -69,6 +73,8 @@ STAGES = [(cone_qp, "fused_admm", "fused_admm"),
           (polish, "solve_factored", "polish"),
           (stance_fb, "compute_contact_forces", "stance_force_balance"),
           (mpc_mod, "mpc_step", "mpc"),
+          (swing_mod, "swing_step", "swing"),
+          (srb_sim, "srb_sim_step", "srb_sim"),
           (wbc, "wbc_step", "wbc"),
           (whole_body, "whole_body_step", "whole_body_step"),
           (whole_body, "observe", "whole_body_observe"),
@@ -146,7 +152,15 @@ def _advance(mode: str, batch: int, device):
     if mode == "whole_body":
         loop, _ = bench_wb.run(bench_wb.build(batch, device), 3)
         return lambda n: bench_wb.run(loop, n)
-    if mode == "transition":
+    params = a1_params(device)
+    cmd = TwistCommand.constant(vx=np.full(batch, 0.2, np.float32),
+                                body_height=0.27, device=device)
+    if mode == "fleet":
+        n = len(bench_fleet.ROBOTS) * len(bench_fleet.VX)
+        fleet = bench_fleet.build(-(-batch // n), device)
+        config, params, cmd = fleet.config, fleet.params, fleet.cmd
+        batch = len(fleet.robots)
+    elif mode == "transition":
         config = LocomotionConfig(
             mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
             swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(device),
@@ -165,9 +179,6 @@ def _advance(mode: str, batch: int, device):
                                   swing=swing_mod.SwingConfig(mode=m),
                                   gait=TROT(device), mode=m,
                                   force_balance=stance_fb.ForceBalanceConfig())
-    params = a1_params(device)
-    cmd = TwistCommand.constant(vx=np.full(batch, 0.2, np.float32),
-                                body_height=0.27, device=device)
     carry = rollout_mod.rollout_init(config, params, batch)
     carry, _ = rollout_mod.rollout_segment(config, params, cmd, carry, 3)
     return lambda n: rollout_mod.rollout_segment(config, params, cmd, carry,

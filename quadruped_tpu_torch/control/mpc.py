@@ -6,7 +6,9 @@ exact ZOH, the condensed cost and the friction-cone QP, and runs
 `cone_qp.solve`, whose ADMM loop is the `fused_admm` CUDA kernel on the
 card. With `move_block` the tail horizon steps share force variables
 (`long_horizon_config`: H=16 at the condensed size of H=10), and the warm
-state lives in the reduced space.
+state lives in the reduced space. With stacked parameters (a fleet) each
+scenario's QP carries its own robot: mass, inertia, CoM offset, force cap
+m*g and friction coefficient reach the cone QP, and so K1, per row.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
                                                 LegState,
                                                 predicted_contact_table)
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 from quadruped_tpu_torch.solvers import condense, cone_qp
 from quadruped_tpu_torch.utils import card, tree
 
@@ -189,7 +191,8 @@ def gravity_warm_start(params: RobotParams,
     """Primal start for cold solves: body weight split evenly among each
     horizon step's contact legs (fz only). [B, H, 4] -> [B, 12H]."""
     n_c = torch.sum(contact_table, dim=-1, keepdim=True)
-    fz = contact_table * params.total_mass * 9.81 / torch.clamp(n_c, min=1.0)
+    mass = per_scenario(params, params.total_mass, contact_table.ndim)
+    fz = contact_table * mass * 9.81 / torch.clamp(n_c, min=1.0)
     x0 = torch.zeros(contact_table.shape + (3,), dtype=torch.float32,
                      device=contact_table.device)
     x0[..., 2] = fz
@@ -210,8 +213,9 @@ def mpc_problem(config: MpcConfig, params: RobotParams, state: MpcState,
     b = r_mat.shape[0]
     foot_base = kinematics.foot_positions_in_base_frame(params,
                                                         obs.joint_angles)
-    r_feet = torch.einsum("bij,blj->bli", r_mat,
-                          foot_base - params.com_offset)
+    r_feet = torch.einsum(
+        "bij,blj->bli", r_mat,
+        foot_base - per_scenario(params, params.com_offset, 3))
 
     # Re-anchor the stored desired position to +/-0.1 m of the actual.
     start_xy = torch.clamp(state.pos_des_world[:, :2],
@@ -232,7 +236,8 @@ def mpc_problem(config: MpcConfig, params: RobotParams, state: MpcState,
     p_cost, q_cost = condense.condense_cost_structured(
         a_ct, bd, ad, x0, x_des, weights, config.force_weight, h,
         config.dt_mpc)
-    fz_hi = (contact_table * params.max_force).reshape(b, h * 4)
+    fz_hi = (contact_table * per_scenario(params, params.max_force, 3)
+             ).reshape(b, h * 4)
     if config.move_block:
         groups, n_g = condense.move_block_groups(h, *config.move_block)
         p_cost, q_cost, fz_hi = condense.reduce_move_blocking(
@@ -447,7 +452,8 @@ def mpc_step(config: MpcConfig, params: RobotParams,
     f_body = torch.einsum("bji,blj->bli", r, state.forces_world)
     tau = kinematics.map_contact_forces_to_torques(params, obs.joint_angles,
                                                    -f_body)
-    tau = torch.clamp(tau, -params.torque_limit, params.torque_limit)
+    limit = per_scenario(params, params.torque_limit, 2)
+    tau = torch.clamp(tau, -limit, limit)
     tau = tau * torch.repeat_interleave(stance_now.to(tau.dtype), 3, dim=-1)
     state = dataclasses.replace(state, iteration=state.iteration + 1)
     return tau, state.forces_world, should_solve, state

@@ -4,7 +4,8 @@ Per-leg masked arithmetic over [B, 4, 3]: lift-off latching, the foothold
 law of the mode (the advanced-trot heuristic, or the velocity-mode Raibert
 law for every other mode), the touchdown-wait probe, the optional terrain
 hook `SwingConfig.foothold_adjust_fn`, the swing curve, and IK to joint
-targets. The gait table may be shared by the batch or per scenario.
+targets. The gait table may be shared by the batch or per scenario, and
+so may the robot (`params.stack_params`) in the advanced-trot law.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.core import se3, splines
 from quadruped_tpu_torch.gait.scheduler import GaitConfig, GaitState, LegState
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import SIDE_SIGN, RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams
 
 
 class SplineType:
@@ -134,12 +135,11 @@ def heuristic_foothold_advanced(config: SwingConfig, params: RobotParams,
     dp[..., 2] = 0.0
 
     roll_r = se3.rot_x(obs.base_rpy[:, 0])
-    interleave = params.hip_length * torch.as_tensor(
-        SIDE_SIGN, dtype=hip.dtype, device=hip.device)
+    interleave = params.signed_hip_length            # [4], [B, 4] stacked
     zero4 = torch.zeros_like(interleave)
-    hip_link = torch.stack([zero4, interleave, zero4], dim=-1)
-    hip_world = torch.einsum("bij,lj->bli", roll_r, hip_link)
-    target = dp + torch.stack([hip[:, 0], hip[:, 1], zero4], dim=-1) \
+    # roll_r @ (0, l, 0) per leg: the y column scaled, exactly the product.
+    hip_world = interleave[..., None] * roll_r[:, None, :, 1]
+    target = dp + torch.stack([hip[..., 0], hip[..., 1], zero4], dim=-1) \
         + hip_world
     rear_drop = torch.where(des.velocity[:, 0] < -0.01, 0.02, 0.0)
     target[:, 2:, 0] -= rear_drop[:, None]

@@ -36,7 +36,8 @@ from quadruped_tpu_torch.planner.pose_planner import (PosePlannerState,
                                                       pose_planner_init,
                                                       pose_planner_update)
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import (RobotParams,
+                                               require_one_robot)
 
 STANCE_KD = 3.0
 
@@ -74,6 +75,7 @@ def _feet_world(params: RobotParams, obs: RobotObservation) -> torch.Tensor:
 
 def walk_init(config: WalkConfig, params: RobotParams,
               obs: RobotObservation) -> WalkState:
+    require_one_robot(params, "the WALK mode")
     b, device = obs.base_position.shape[0], obs.base_position.device
     feet_world = _feet_world(params, obs)
     return WalkState(

@@ -24,7 +24,8 @@ import torch
 
 from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.dynamics import spatial as sp
-from quadruped_tpu_torch.robots.params import SIDE_SIGN, RobotParams
+from quadruped_tpu_torch.robots.params import (SIDE_SIGN, RobotParams,
+                                               require_one_robot)
 
 NUM_BODIES = 13       # trunk + 12 links
 NUM_DOF = 18          # 6 floating + 12 revolute
@@ -88,6 +89,8 @@ class FbState:
 
 def build_model(params: RobotParams) -> FloatingBaseModel:
     """The 13-body model of the robot in `params`, on params' device."""
+    require_one_robot(params, "the whole-body model (the WBC, the "
+                      "whole-body sim)")
     dtype, device = params.hip_offset.dtype, params.hip_offset.device
     zero = torch.zeros((), dtype=dtype, device=device)
     xtree = [torch.zeros(3, dtype=dtype, device=device)]

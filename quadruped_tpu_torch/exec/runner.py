@@ -41,7 +41,8 @@ from quadruped_tpu_torch.estimation.container import (EstimatorConfig,
                                                       estimator_init,
                                                       estimator_update)
 from quadruped_tpu_torch.gait.scheduler import stance_contact_mask
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import (RobotParams,
+                                               require_one_robot)
 from quadruped_tpu_torch.utils import tree
 
 
@@ -67,6 +68,7 @@ def runner_init(config: RunnerConfig, params: RobotParams,
     """Boot state for the batch of `obs` (on its device): the FSM in
     STAND_UP from the observed joint angles, the locomotion controller
     (with its MPC cold start) and, with `use_estimators`, the estimators."""
+    require_one_robot(params, "the robot runner")
     b, device = obs.base_position.shape[0], obs.base_position.device
     est = (estimator_init(config.estimator, b, params.body_height, device)
            if config.use_estimators else None)

@@ -6,4 +6,6 @@ from quadruped_tpu_torch.robots.params import (  # noqa: F401
     lite2_params,
     lite3_params,
     named_params,
+    stack,
+    stack_params,
 )

@@ -1,7 +1,9 @@
 """Analytic 3-DoF leg kinematics (port of quadruped_tpu/robots/kinematics.py).
 
 Frames and joint order follow the JAX module. Every function broadcasts
-over leading axes; the per-leg axis is explicit ([..., 4, 3]).
+over leading axes; the per-leg axis is explicit ([..., 4, 3]). The
+parameters are one robot or a fleet (`params.stack_params`: the leading
+axis of the joint or foot tensors is then the scenario axis).
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ import math
 import torch
 
 from quadruped_tpu_torch.core import linalg
-from quadruped_tpu_torch.robots.params import RobotParams, SIDE_SIGN
+from quadruped_tpu_torch.robots.params import (SIDE_SIGN, RobotParams,
+                                               per_scenario)
 
 
 def foot_position_in_hip_frame(q, l_hip, l_up, l_low) -> torch.Tensor:
@@ -68,34 +71,36 @@ def leg_jacobian(q, l_hip, l_up, l_low) -> torch.Tensor:
     ], dim=-2)
 
 
-def _signed_hip(params: RobotParams, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(SIDE_SIGN, dtype=like.dtype,
-                           device=like.device) * params.hip_length
+def _leg_lengths(params: RobotParams, like: torch.Tensor, ndim: int):
+    """(signed abad length [4], thigh, calf) shaped to broadcast against
+    per-leg tensors [..., 4] of `ndim` dims."""
+    sign = torch.as_tensor(SIDE_SIGN, dtype=like.dtype, device=like.device)
+    return (sign * per_scenario(params, params.hip_length, ndim),
+            per_scenario(params, params.upper_length, ndim),
+            per_scenario(params, params.lower_length, ndim))
 
 
 def foot_positions_in_base_frame(params: RobotParams,
                                  q: torch.Tensor) -> torch.Tensor:
     """[..., 12] joint angles -> [..., 4, 3] foot positions in base frame."""
     ql = q.reshape(q.shape[:-1] + (4, 3))
-    p_hip = foot_position_in_hip_frame(
-        ql, _signed_hip(params, q), params.upper_length, params.lower_length)
-    return p_hip + params.hip_offset
+    p_hip = foot_position_in_hip_frame(ql, *_leg_lengths(params, q, q.ndim))
+    return p_hip + per_scenario(params, params.hip_offset, ql.ndim)
 
 
 def joint_angles_from_foot_positions(params: RobotParams,
                                      p_base: torch.Tensor) -> torch.Tensor:
     """[..., 4, 3] base-frame foot positions -> [..., 12] joint angles."""
     q = foot_position_to_joint_angles(
-        p_base - params.hip_offset, _signed_hip(params, p_base),
-        params.upper_length, params.lower_length)
+        p_base - per_scenario(params, params.hip_offset, p_base.ndim),
+        *_leg_lengths(params, p_base, p_base.ndim - 1))
     return q.reshape(q.shape[:-2] + (12,))
 
 
 def all_leg_jacobians(params: RobotParams, q: torch.Tensor) -> torch.Tensor:
     """[..., 12] joint angles -> [..., 4, 3, 3] per-leg Jacobians."""
     ql = q.reshape(q.shape[:-1] + (4, 3))
-    return leg_jacobian(ql, _signed_hip(params, q), params.upper_length,
-                        params.lower_length)
+    return leg_jacobian(ql, *_leg_lengths(params, q, q.ndim))
 
 
 def foot_velocities_in_base_frame(params: RobotParams, q: torch.Tensor,

@@ -1,10 +1,17 @@
 """Robot parameters (port of quadruped_tpu/robots/params.py).
 
-One `RobotParams` is one robot model, shared by every scenario of a batch:
-its tensors carry no scenario axis and broadcast against the batch-first
-state. The factories (A1, Go1, Aliengo, Lite3, Lite2, `named_params`) give
-the JAX module's values; `tests/test_torch_params.py` holds them equal
-field by field. `stack_params` (a scenario axis over robots) is not ported.
+A `RobotParams` is either one robot model shared by every scenario of a
+batch (the factories: A1, Go1, Aliengo, Lite3, Lite2, `named_params`; no
+scenario axis, the tensors broadcast against the batch-first state) or a
+heterogeneous fleet, one robot per scenario (`stack_params`, `stack`:
+every field gains a leading scenario axis, [B], [B, 3, 3], [B, 4, 3],
+[B, 12], ...), what `jax.vmap` over the JAX module's stacked pytree gives.
+Consumers read the two forms through one rule, `per_scenario`; the paths
+that take only one robot refuse a fleet through `require_one_robot` where a
+caller starts them (`locomotion_init` for the force-balance modes and the
+WBC, `walk_init`, `build_model`, `whole_body_init`, `runner_init`).
+The factories give the JAX module's values; `tests/test_torch_params.py`
+and `tests/test_torch_scenarios.py` hold them equal field by field.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from quadruped_tpu_torch.utils import card
+from quadruped_tpu_torch.utils import card, tree
 
 # Side sign of the hip (abduction) link y-offset per leg: right legs -1.
 SIDE_SIGN = (-1.0, 1.0, -1.0, 1.0)
@@ -24,7 +31,8 @@ NUM_JOINTS = 12
 
 @dataclasses.dataclass
 class RobotParams:
-    """Static per-robot parameters (f32 tensors, no scenario axis)."""
+    """Static per-robot parameters (f32 tensors; the shapes below, with a
+    leading scenario axis when stacked)."""
 
     total_mass: torch.Tensor        # [] kg
     total_inertia: torch.Tensor     # [3,3] body-frame rotational inertia
@@ -50,15 +58,47 @@ class RobotParams:
     friction_coef: torch.Tensor     # [] ground mu used by the MPC
 
     @property
+    def stacked(self) -> bool:
+        """Whether every field carries a leading scenario axis (a fleet)."""
+        return self.total_mass.ndim == 1
+
+    @property
     def signed_hip_length(self) -> torch.Tensor:
-        """[4] abad link y-offset with per-leg side sign."""
-        return self.hip_length * torch.as_tensor(
+        """[4] ([B, 4] stacked) abad link y-offset with per-leg side sign."""
+        return per_scenario(self, self.hip_length, 2) * torch.as_tensor(
             SIDE_SIGN, dtype=torch.float32, device=self.hip_length.device)
 
     @property
     def max_force(self) -> torch.Tensor:
         """Per-leg vertical force cap fMax = m*g (reference convention)."""
         return self.total_mass * 9.81
+
+
+def per_scenario(params: RobotParams, value: torch.Tensor,
+                 ndim: int) -> torch.Tensor:
+    """`value` (a field of `params`, or a tensor made from fields with the
+    same leading axis) shaped to broadcast against a batch-first tensor of
+    `ndim` dims whose trailing axes are the field's own: unchanged for one
+    robot; for a fleet the scenario axis stays first and singleton axes go
+    in after it. [B] against [B, 4] is [B, 1], [B, 3] against [B, 4, 3] is
+    [B, 1, 3]: where a bare [B] would meet [B, 4] (B = 4) or [B, 3]
+    (B = 3) it would broadcast over legs or axes without an error."""
+    if not params.stacked:
+        return value
+    pad = ndim - value.ndim
+    if pad < 0:
+        raise ValueError(f"a stacked field of shape {tuple(value.shape)} "
+                         f"does not fit a {ndim}-dim batch-first tensor")
+    return value.reshape(value.shape[:1] + (1,) * pad + value.shape[1:])
+
+
+def require_one_robot(params: RobotParams, what: str) -> None:
+    """Raise on stacked parameters where `what` takes one robot model."""
+    if params.stacked:
+        raise NotImplementedError(
+            f"{what} takes one robot model; stacked parameters (a fleet, "
+            f"stack_params) run only the ADVANCED_TROT convex-MPC loop on "
+            f"the SRB sim (sim.rollout, sim.rollout_cadenced)")
 
 
 def _params(device, *, total_mass, total_inertia_diag, body_mass,
@@ -254,3 +294,19 @@ _FACTORIES = {"a1": a1_params, "go1": go1_params,
 
 def named_params(name: str, device=None) -> RobotParams:
     return _FACTORIES[name](device)
+
+
+def stack(robots) -> RobotParams:
+    """One robot per scenario: the fields of a list of one-robot
+    `RobotParams` (the factories', `robots.urdf`'s) stacked along a new
+    leading axis."""
+    robots = list(robots)
+    if any(r.stacked for r in robots):
+        raise ValueError("stack takes one-robot parameters")
+    return tree.stack(robots)
+
+
+def stack_params(names, device=None) -> RobotParams:
+    """Several named robots along a leading scenario axis (a heterogeneous
+    fleet); on the card unless `device` says otherwise."""
+    return stack([named_params(n, device) for n in names])

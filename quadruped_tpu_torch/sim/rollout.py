@@ -7,7 +7,11 @@ inside the tick as well. Divergence (tip-over / NaN) is a per-scenario
 mask; dead scenarios are frozen. Traces are batch-first: [B, T, ...];
 beside the JAX module's traces, `tau_trace` keeps the commands'
 feed-forward torques, which the SRB sim does not apply (it welds stance
-feet and servoes swing joints), so that the WBC's output can be seen.
+feet and servoes swing joints), so that the WBC's output can be seen. The
+parameters are one robot or a fleet, one robot per scenario
+(`robots.params.stack_params`, `sim.scenario.scenario_grid`), whose
+scenario axis must be the batch (`rollout_init` raises otherwise); a
+fleet runs the ADVANCED_TROT MPC loop without the WBC.
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ def tick_time(value: float, batch: int, device) -> torch.Tensor:
 
 def rollout_init(config: LocomotionConfig, params: RobotParams,
                  batch: int) -> RolloutCarry:
-    """Fresh carry at t=0, including the cold-start MPC solve."""
+    """Fresh carry at t=0, including the cold-start MPC solve. Raises
+    ValueError when stacked `params` hold another number of robots than
+    `batch`."""
     sim0 = srb_sim.srb_sim_init(params, batch)
     obs0 = srb_sim.observe(params, sim0, torch.ones_like(sim0.q[:, :4]))
     ctrl0 = locomotion_init(config, params, obs0)

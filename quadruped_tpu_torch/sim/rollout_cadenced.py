@@ -9,7 +9,8 @@ The same control semantics as the cadence multiplexing of sim/rollout.py
 (the reference holds forces between solves), with exactly one batched
 solve, and so one ADMM kernel launch, per period. This is the
 scenario-sweep workhorse that benchmarks/bench_rollout.py times in the JAX
-package.
+package. The parameters may be a fleet (`robots.params.stack_params`), one
+robot per scenario of `cmd`.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ The trunk integrates the SRB under the stance contact forces (with the
 JAX module's wrench-deficit redistribution and joint-servo damping
 reaction); swing joints servo toward their targets; stance feet stay
 welded to their world anchors by IK. The small SPD solves go through the
-closed-form `core.linalg.inv_spd`, as in the JAX module.
+closed-form `core.linalg.inv_spd`, as in the JAX module. The parameters
+are one robot or a fleet (`params.stack_params`, one robot per scenario:
+its own stand angles, height, mass, inertia and legs).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 
 
 @dataclasses.dataclass
@@ -33,6 +35,9 @@ class SrbSimState:
 
 def srb_sim_init(params: RobotParams, batch: int,
                  body_height=None) -> SrbSimState:
+    if params.stacked and params.total_mass.shape[0] != batch:
+        raise ValueError(f"stacked parameters of {params.total_mass.shape[0]}"
+                         f" robots for a batch of {batch} scenarios")
     device = params.total_mass.device
     h = params.body_height if body_height is None else body_height
     q0 = params.stand_angles.expand(batch, 12).clone()
@@ -63,7 +68,8 @@ def observe(params: RobotParams, state: SrbSimState,
         joint_angles=state.q,
         joint_velocities=state.dq,
         foot_contact=contact,
-        foot_forces=contact * params.total_mass * 9.81 / 4.0,
+        foot_forces=contact * per_scenario(params, params.total_mass, 2)
+        * 9.81 / 4.0,
     )
 
 
@@ -81,8 +87,9 @@ def srb_sim_step(params: RobotParams, state: SrbSimState,
     f_held = forces_world * stance
 
     foot_base = kinematics.foot_positions_in_base_frame(params, state.q)
-    r_feet_world = torch.einsum("bij,blj->bli", r,
-                                foot_base - params.com_offset)
+    r_feet_world = torch.einsum(
+        "bij,blj->bli", r,
+        foot_base - per_scenario(params, params.com_offset, 3))
 
     # Wrench the held solution assigned to now-lifted feet, re-allocated
     # min-norm onto the current stance feet.
@@ -115,7 +122,8 @@ def srb_sim_step(params: RobotParams, state: SrbSimState,
 
     # Trunk dynamics.
     gravity = torch.tensor([0.0, 0.0, -9.81], dtype=dtype, device=device)
-    acc = torch.sum(f, dim=1) / params.total_mass + gravity
+    acc = torch.sum(f, dim=1) / per_scenario(params, params.total_mass, 2) \
+        + gravity
     torque = torch.sum(torch.linalg.cross(r_feet_world, f, dim=-1), dim=1)
     i_world = r @ params.total_inertia @ r.transpose(-1, -2)
     ang_acc = torch.einsum("bij,bj->bi", linalg.inv_spd(i_world), torque)

@@ -26,7 +26,8 @@ from quadruped_tpu_torch.control.types import HybridCommand, RobotObservation
 from quadruped_tpu_torch.core import se3
 from quadruped_tpu_torch.dynamics import floating_base as fb
 from quadruped_tpu_torch.dynamics.floating_base import FbState
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import (RobotParams,
+                                               require_one_robot)
 
 
 @dataclasses.dataclass
@@ -67,6 +68,7 @@ def whole_body_init(params: RobotParams, batch: int,
     """B robots standing at their stand angles, base at `body_height` (a
     number or a [B] tensor; params.body_height by default), on params'
     device."""
+    require_one_robot(params, "the whole-body sim")
     device = params.total_mass.device
     h = params.body_height if body_height is None else body_height
     position = torch.zeros(batch, 3, dtype=torch.float32, device=device)

@@ -4,7 +4,9 @@
 instances are dataclasses) and builds the port's dataclass of the same
 field names: each array leaf goes through `np.asarray` and becomes a
 float32 / int32 / bool tensor on the given device; plain Python fields are
-kept as they are. No JAX import is needed: numpy does the work.
+kept as they are, and a field the port annotates `int` (the step counter
+of `sim.rollout.RolloutCarry`) takes the array's one value. No JAX import
+is needed: numpy does the work.
 
 Batch axis: `batch=N` broadcasts every leaf to a leading scenario axis of
 N (one JAX scenario replicated); `batch=None` keeps the leaves' shapes,
@@ -15,7 +17,10 @@ its leading axis (`FbState`, `WholeBodySimState`, `WbcCommand`, the
 controller states: `LocomotionState` with its optional `transition`,
 `WalkState`, `PosePlannerState`, `WalkGaitState`, `GaitTransitionState`,
 `RunnerState` with its `EstimatorState`, `ControlFsmState`, `RcState`,
-`CmuKfState`, `RawSensors`). A field annotated `X | None` recurses into X
+`CmuKfState`, `RawSensors`, `RolloutCarry`). A stacked pytree of the
+JAX package (`stack_params`' `RobotParams`, `scenario_grid`'s
+`GaitConfig`) keeps its leading axis too: the port's fleet form. A field
+annotated `X | None` recurses into X
 when it holds a value; a JAX NamedTuple (`MovingWindowState`) maps field
 for field onto the port's dataclass of that name. Leaves land on the card
 unless `device` names another device.
@@ -29,7 +34,7 @@ import typing
 import numpy as np
 import torch
 
-from quadruped_tpu_torch.utils import card
+from quadruped_tpu_torch.utils import card, tree
 
 
 def _tensor(value, device, batch):
@@ -42,6 +47,15 @@ def _tensor(value, device, batch):
     if batch is not None:
         t = t.expand((batch,) + tuple(t.shape)).contiguous()
     return t
+
+
+def _int(value) -> int:
+    """The one value of a scalar array, or of an array whose entries are
+    all equal (a counter `jax.vmap` replicated over the scenarios)."""
+    arr = np.asarray(value).reshape(-1)
+    if arr.size == 0 or not (arr == arr[0]).all():
+        raise ValueError(f"an int field needs one value, got {arr}")
+    return int(arr[0])
 
 
 def _dataclass_hint(hint):
@@ -76,6 +90,8 @@ def to_torch(value, cls, *, device=None, batch: int | None = None):
             kwargs[f.name] = to_torch(v, hint, device=device, batch=batch)
         elif isinstance(v, (bool, int, float, str, tuple)):
             kwargs[f.name] = v
+        elif hints.get(f.name) is int:
+            kwargs[f.name] = _int(v)
         else:
             kwargs[f.name] = _tensor(v, device, batch)
     return cls(**kwargs)
@@ -84,11 +100,8 @@ def to_torch(value, cls, *, device=None, batch: int | None = None):
 def as_numpy(value):
     """A dataclass (or NamedTuple) of tensors -> nested dict of numpy arrays;
     works on JAX pytrees of arrays and on the port's dataclasses alike."""
-    if dataclasses.is_dataclass(value):
-        return {f.name: as_numpy(getattr(value, f.name))
-                for f in dataclasses.fields(value)}
-    if _is_namedtuple(value):
-        return {k: as_numpy(getattr(value, k)) for k in value._fields}
+    if dataclasses.is_dataclass(value) or _is_namedtuple(value):
+        return {name: as_numpy(kid) for name, kid in tree.children(value)}
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     if value is None or isinstance(value, (bool, int, float, str)):
@@ -99,13 +112,8 @@ def as_numpy(value):
 def flatten(nested: dict, prefix: str) -> dict:
     """A nested dict of arrays (as_numpy's) -> flat {prefix/a/b: array},
     for np.savez; None leaves are dropped."""
-    out = {}
-    for k, v in nested.items():
-        if isinstance(v, dict):
-            out.update(flatten(v, f"{prefix}/{k}"))
-        elif v is not None:
-            out[f"{prefix}/{k}"] = np.asarray(v)
-    return out
+    return {f"{prefix}/{path}": np.asarray(v)
+            for path, v in tree.leaves(nested, sep="/")}
 
 
 def unflatten(arrays, prefix: str) -> dict:
