@@ -142,7 +142,32 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      resumed carry bitwise the uninterrupted run's; a trace save / load
      round trip (`utils.trace`);
  24. fixture: the JAX fleet and multi-gait rollouts of
-     tests/data/fleet_a1.npz at the CPU test's limits.
+     tests/data/fleet_a1.npz at the CPU test's limits;
+ 25. the bench's seeded route: `bench.build_bench` at B=8192, H=10 and
+     H=16, route `loop` cold and with `minv_reuse` (the boot's inverse
+     carry seeds M^{-1}): fused_admm once per update, the seeded update's
+     first-step forces within 3% (H=10) / 1% (H=16) m*g of the cold
+     update's; the inverse stage of each timed alone (CUDA events), the
+     seeded one with and without the rescue of diverged polishes, the
+     Woodbury capacitance scan and its share, how many polishes diverge
+     without the rescue, max|I - MX| of both; solves/s of both routes;
+ 26. a carried chain at B=2048: 40 cadence solves (`bench_problems` 15 ms
+     apart), seeded (with the rescue), cold, and a control (cold with two
+     float32 polish steps), each against a 400-iteration relaxed solve of
+     the same problem: every step finite, the seeded error averaged over
+     the batch never more than 1% m*g over the cold one (the JAX
+     test_long_chain_no_accumulation, per step over the batch), the
+     per-scenario excess of the seeded and the control chain printed,
+     fused_admm once per solve;
+ 27. fused_admm started from a carried z0 (the bf16 head's iterate after
+     4 iterations, B=2048, n=120, 20 iterations) against its plain
+     version (the limits of phase 2), timed in turns with K1 without z0;
+     `cone_qp.solve(bf16_iters=4, iters=24)` on the card against the same
+     solve on the CPU (B=256) at tests/test_torch_bf16_iters.py's limits,
+     fused_admm once for the float32 tail;
+ 28. the dense condensation (`condense.condense_cost`) against the
+     structured one on the card, B=2048, H=10: max |diff| / max |value| of
+     P and q within 1e-5.
 Every phase line ends with its wall time since the previous line. The last
 two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
@@ -208,6 +233,30 @@ FULL_FORCE_ATOL, FULL_RESIDUAL, FULL_RESIDUAL_GAP = 0.5, 5e-3, 1e-4
 DOTS_TOL = {"bf16": (2e-2, 2e-4), "f32": (1e-5, 1e-6)}
 DOTS_3PASS_ATOL = 5e-6
 BENCH_BATCH = 8192
+# The seeded route (phases 25-26): the seeded update's forces against the
+# cold update's on the same problems, at the CPU bench test's limits
+# (tests/test_torch_bench.py TOL, fractions of m*g by horizon); the carried
+# chain at B=2048 over 40 cadence solves, each solve's first-step forces
+# against a 400-iteration relaxed solve of the same problem: at every
+# step the seeded path's error, averaged over the batch, may exceed the
+# cold path's by at most 1% m*g (the JAX test's limit, which it applies to
+# one scenario). Per scenario the two chains part by chain noise: a cold
+# chain with a better inverse (two float32 polish steps) exceeds the cold
+# route on some scenario and step by more than the seeded chain does, so
+# the phase prints both spreads and holds the batch mean.
+MINV_TOL = {10: 0.03, 16: 0.01}
+CHAIN_BATCH, CHAIN_STEPS, CHAIN_EXCESS = 2048, 40, 0.01
+# The share of seeded solves whose polish diverged and took the cold
+# inverse (`seed_rescue`); a seeded path that leaves the pin flips to the
+# rescue (no Woodbury step) holds the forces and fails this.
+RESCUE_MAX_SHARE = 0.01
+# The bf16 head on the card against the same solve on the CPU (phase 27):
+# the CPU test's limits against JAX (tests/test_torch_bf16_iters.py):
+# first-step forces 0.5% m*g, every force 3% m*g, duals 1e-3 + 1e-3 |y|.
+BF16_BATCH = 256
+# Dense against structured condensation (phase 28), max |diff| over max
+# |value| of P and of q (1e-5; 3e-7 on the CPU at B=256).
+DENSE_REL = 1e-5
 # The force-balance rollouts (phase 8): ticks of 2 ms (the TROT cycle is
 # 0.5 s, 250 ticks; cut to 100 to keep the script inside its time).
 MODE_TICKS = {"velocity": 100, "position": 100}
@@ -361,8 +410,10 @@ def main() -> int:
     from quadruped_tpu_torch.benchmarks import mxu_rate
     from quadruped_tpu_torch.solvers import (cone_qp, fused_admm,
                                              fused_full_solve)
-    from quadruped_tpu_torch.solvers import problems
+    from quadruped_tpu_torch.solvers import condense, problems
     from quadruped_tpu_torch.solvers.problems import bench_problems
+    from quadruped_tpu_torch.core import se3 as se3_mod
+    from quadruped_tpu_torch.dynamics import srb as srb_mod
     from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
     from quadruped_tpu_torch.benchmarks import walk as bench_walk
     from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
@@ -1566,6 +1617,241 @@ def main() -> int:
         if bad:
             raise RuntimeError(f"fixture fleet {case} mismatch: {bad}")
 
+    # 25. The seeded route of the bench (minv_reuse) against the cold route
+    # at B=8192: one counted update each, the inverse stage of each timed
+    # alone, then their rates.
+    minv_launches, minv_k1 = 0, {}
+    for horizon in (10, 16):
+        fn_c, args_c, cfg = bench.build_bench(BENCH_BATCH, "loop", horizon,
+                                              device=dev)
+        fn_s, args_s, _ = bench.build_bench(BENCH_BATCH, "loop", horizon,
+                                            device=dev, minv_reuse=True)
+        torch.cuda.synchronize()
+        where = f"minv_reuse update H={horizon}"
+        reset_counts()
+        x_s, y_s, carry_out = fn_s(*args_s)
+        torch.cuda.synchronize()
+        launches = counts_after(where, "fused_admm", 1)
+        minv_launches += launches
+        reset_counts()
+        x_c, _ = fn_c(*args_c)
+        torch.cuda.synchronize()
+        counts_after(f"cold update H={horizon}", "fused_admm", 1)
+        if not (torch.isfinite(x_s).all() and torch.isfinite(y_s).all()
+                and torch.isfinite(carry_out.m_inv).all()):
+            raise RuntimeError(f"{where}: not finite")
+        dforce = (x_s - x_c)[:, :12].abs().max().item()
+        # The inverse stage alone on this update's M, cold and seeded, and
+        # the seeded route's Woodbury capacitance scan (40 rank-1 steps).
+        carry = args_s[6]
+        prob = bench.cadence_problem(cfg, params, *args_s[:4])
+        m_mat, inp = cone_qp.admm_operands(prob, cone_qp.RHO_CONE,
+                                           cone_qp.SIGMA, *args_s[4:6])
+        # The JAX algorithm (no rescue) beside the bench's (with it): how
+        # many polishes diverged, and how many the rescue replaced.
+        seed_args = (m_mat, carry, inp.d_t, inp.gamma, inp.pinned,
+                     cone_qp.RHO_CONE)
+        rescue = dict(rescue_iters=cone_qp.NS_ITERS)
+        x_ref = cone_qp.seeded_inverse(*seed_args)
+        diverged = int((~(cone_qp.probe_residual(m_mat, x_ref)
+                          <= cone_qp.RESCUE_RESID)).sum())
+        rescued_before = cone_qp.seeded_inverse.rescued
+        x_seed = cone_qp.seeded_inverse(*seed_args, **rescue)
+        rescued = cone_qp.seeded_inverse.rescued - rescued_before
+        x_cold = cone_qp.newton_schulz_inverse(m_mat, cone_qp.NS_ITERS, 1)
+        eye = torch.eye(m_mat.shape[-1], device=dev)
+        res_seed, res_cold = ((eye - torch.bmm(m_mat, inv)).abs().max().item()
+                              for inv in (x_seed, x_cold))
+        s_cap = carry.m_inv[:, 2::3, 2::3].contiguous()
+        c_cap = 99.0 * cone_qp.RHO_CONE * (inp.pinned - carry.pinned)
+        ms_cold = card.time_ms(lambda: cone_qp.newton_schulz_inverse(
+            m_mat, cone_qp.NS_ITERS, 1), 10)
+        ms_seed = card.time_ms(lambda: cone_qp.seeded_inverse(
+            *seed_args, **rescue), 10)
+        ms_seed_ref = card.time_ms(
+            lambda: cone_qp.seeded_inverse(*seed_args), 10)
+        ms_cap = card.time_ms(lambda: cone_qp._capacitance_inverse(
+            s_cap, c_cap), 10)
+        # K1 on the seeded update's operands against its plain version.
+        k1_ops = (x_seed, *inp[1:8])
+        k1_kw = dict(iters=cfg.qp_iters, alpha=cfg.qp_alpha,
+                     accel_restart=cfg.qp_accel_restart, sigma=cone_qp.SIGMA)
+        k1_err = max(admm_vs_plain(where, k1_ops, k1_kw))
+        max_err = max(max_err, k1_err)
+        k1_ms = card.time_ms(lambda: fused_admm.fused_admm(*k1_ops, **k1_kw),
+                             10)
+        k1_plain_ms = card.time_ms(
+            lambda: fused_admm.fused_admm_reference(*k1_ops, **k1_kw), 3)
+        k1_bound = bound(*admm_work(BENCH_BATCH, x_s.shape[1],
+                                    cfg.qp_iters))
+        minv_k1[horizon] = (k1_ms, k1_plain_ms, k1_bound, k1_err)
+        rates = {}
+        for name, (fn, args) in (("cold", (fn_c, args_c)),
+                                 ("seeded", (fn_s, args_s))):
+            r = bench.update_rates(fn, args, BENCH_BATCH, reps=10, runs=3)
+            rates[name] = (r[len(r) // 2], r[0], r[-1])
+        phase(f"minv_reuse:update:h{horizon}", batch=BENCH_BATCH,
+              n=x_s.shape[1], kernel_launches=launches,
+              max_first_step_dforce_mg=dforce / MG, tol=MINV_TOL[horizon],
+              flips=int((inp.pinned != carry.pinned).sum().item()),
+              inverse_ms_cold=ms_cold, inverse_ms_seeded=ms_seed,
+              inverse_ms_seeded_no_rescue=ms_seed_ref,
+              capacitance_ms=ms_cap, capacitance_share=ms_cap / ms_seed,
+              diverged_without_rescue=diverged, rescued=rescued,
+              residual_seeded=res_seed, residual_cold=res_cold,
+              kernel_ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound[0],
+              kernel_max_abs_err=k1_err, kernel_tol=admm_tol,
+              **{f"solves_per_s_{k}": f"{v[0]:.1f} [{v[1]:.1f}, {v[2]:.1f}]"
+                 for k, v in rates.items()},
+              card=json.dumps(smi))
+        if not (dforce <= MINV_TOL[horizon] * MG
+                and rescued <= RESCUE_MAX_SHARE * BENCH_BATCH):
+            raise RuntimeError(f"{where}: forces {dforce / MG:.4f} m*g off "
+                               f"the cold update, {rescued} rescued")
+        del fn_c, fn_s, args_c, args_s, carry, carry_out, m_mat, inp
+        del x_seed, x_ref, x_cold, s_cap, prob
+
+    # 26. A carried chain at B=2048: 40 cadence solves, seeded (with the
+    # rescue) and cold, each against a 400-iteration relaxed solve of the
+    # same problem; beside them a control chain, cold with two float32
+    # polish steps (a better inverse than the cold route's).
+    chain_cfg = mpc_mod.MpcConfig()
+    warm_kw = dict(iters=chain_cfg.qp_iters, alpha=chain_cfg.qp_alpha,
+                   accel_restart=chain_cfg.qp_accel_restart)
+    boot_kw = dict(iters=chain_cfg.qp_cold_iters,
+                   alpha=chain_cfg.qp_cold_alpha)
+    reset_counts()
+    rescued_before = cone_qp.seeded_inverse.rescued
+    mean_excess, worst_excess, flips = [], [], 0
+    per_scenario = {"seeded": [], "control": []}
+    starts = carry = pins = None
+    for k in range(CHAIN_STEPS):
+        prob, _ = bench_problems(CHAIN_BATCH, horizon=10,
+                                 t=k * bench.CADENCE_S, device=dev)
+        oracle = cone_qp.solve(prob, **boot_kw)
+        if k == 0:
+            sol, carry = cone_qp.solve(prob, **boot_kw,
+                                       return_inv_carry=True)
+            sols = {"seeded": sol, "cold": oracle, "control": oracle}
+        else:
+            sols = {"cold": cone_qp.solve(prob, **warm_kw, **starts["cold"]),
+                    "control": cone_qp.solve(prob, **warm_kw,
+                                             **starts["control"],
+                                             ns_f32_polish=2)}
+            sols["seeded"], carry = cone_qp.solve(
+                prob, **warm_kw, **starts["seeded"], inv_carry=carry,
+                seed_rescue=True, return_inv_carry=True)
+        flips += 0 if pins is None else int((carry.pinned != pins).sum())
+        pins = carry.pinned
+        starts = {name: dict(x0=sol.x, y0=sol.y)
+                  for name, sol in sols.items()}
+        if not all(bool(torch.isfinite(sol.x).all()
+                        and torch.isfinite(sol.y).all())
+                   for sol in sols.values()):
+            raise RuntimeError(f"minv_reuse chain: step {k} not finite")
+        err = {name: (sol.x - oracle.x)[:, :12].abs().amax(dim=1) / MG
+               for name, sol in sols.items()}
+        mean_excess.append(
+            (err["seeded"].mean() - err["cold"].mean()).item())
+        worst_excess.append(
+            (err["seeded"].max() - err["cold"].max()).item())
+        for name in per_scenario:
+            per_scenario[name].append(err[name] - err["cold"])
+    solves = 4 * CHAIN_STEPS - 2      # step 0: the boot and its oracle
+    counts_after("minv_reuse chain", "fused_admm", solves)
+    quant = torch.tensor([0.5, 0.99, 1.0], device=dev)
+    spread = {name: [round(v, 5) for v in torch.quantile(
+        torch.cat(d), quant).tolist()] for name, d in per_scenario.items()}
+    rescued = cone_qp.seeded_inverse.rescued - rescued_before
+    phase(f"minv_reuse:chain:B{CHAIN_BATCH}", steps=CHAIN_STEPS,
+          pin_flips=flips, rescued=rescued,
+          max_mean_excess_mg=max(mean_excess), tol=CHAIN_EXCESS,
+          max_worst_excess_mg=max(worst_excess),
+          per_scenario_excess_p50_p99_max=json.dumps(spread["seeded"]),
+          control_per_scenario_excess_p50_p99_max=json.dumps(
+              spread["control"]), kernel_launches=solves)
+    if not (max(mean_excess) <= CHAIN_EXCESS and flips > 0 and rescued
+            <= RESCUE_MAX_SHARE * CHAIN_BATCH * (CHAIN_STEPS - 1)):
+        raise RuntimeError(f"minv_reuse chain: the seeded path's mean error "
+                           f"exceeds the cold path's by "
+                           f"{max(mean_excess):.4f} m*g ({flips} pin flips, "
+                           f"{rescued} rescued)")
+
+    # 27. K1 from a carried z0 (the bf16 head's iterate) against its plain
+    # version, timed beside K1 without z0; then the bf16-head solve on the
+    # card against the same solve on the CPU.
+    prob, _ = bench_problems(BATCH, horizon=10, device=dev)
+    inp = cone_qp.admm_inputs(prob)
+    x_h, z_h, y_h = cone_qp.bf16_head(inp, 4, cone_qp.SIGMA, cone_qp.ALPHA)
+    z0_args = (*inp[:6], x_h, y_h)
+    z0_kw = dict(iters=20, sigma=cone_qp.SIGMA, alpha=cone_qp.ALPHA)
+    xk, yk = fused_admm.fused_admm(*z0_args, **z0_kw, z0=z_h)
+    xr, yr = fused_admm.fused_admm_reference(*z0_args, **z0_kw, z0=z_h)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(xk).all() and torch.isfinite(yk).all()):
+        raise RuntimeError("fused_admm with z0: not finite")
+    torch.testing.assert_close(xk, xr, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    torch.testing.assert_close(yk, yr, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    z0_err = max((xk - xr).abs().max().item(), (yk - yr).abs().max().item())
+    z0_ms = {}
+    for name in ("z0", "none", "none", "z0"):   # in turns
+        z = z_h if name == "z0" else None
+        z0_ms.setdefault(name, []).append(card.time_ms(
+            lambda: fused_admm.fused_admm(*z0_args, **z0_kw, z0=z), 20))
+    z0_ms = {k: min(v) for k, v in z0_ms.items()}
+    z0_plain_ms = card.time_ms(lambda: fused_admm.fused_admm_reference(
+        *z0_args, **z0_kw, z0=z_h), 3)
+    z0_bound = bound(*admm_work(BATCH, inp.q.shape[1], z0_kw["iters"]))
+    prob_b, _ = bench_problems(BF16_BATCH, horizon=10, device=dev)
+    prob_cpu, _ = bench_problems(BF16_BATCH, horizon=10, device="cpu")
+    bf_kw = dict(iters=24, bf16_iters=4, ns_f32_polish=2)
+    reset_counts()
+    sol_k = cone_qp.solve(prob_b, **bf_kw)
+    torch.cuda.synchronize()
+    counts_after("bf16 head solve", "fused_admm", 1)
+    sol_p = cone_qp.solve(prob_cpu, **bf_kw)
+    bf_dx = (sol_k.x.cpu() - sol_p.x).abs()
+    bf_first = bf_dx[:, :12].max().item() / MG
+    bf_all = bf_dx.max().item() / MG
+    bf_dy = (sol_k.y.cpu() - sol_p.y).abs()
+    bf_y = (bf_dy - 1e-3 * sol_p.y.abs()).max().item()
+    phase("k1:z0", batch=BATCH, n=inp.q.shape[1], iters=z0_kw["iters"],
+          max_abs_err=z0_err, tol=admm_tol, kernel_ms_z0=z0_ms["z0"],
+          kernel_ms_no_z0=z0_ms["none"], plain_ms_z0=z0_plain_ms,
+          bound_ms=z0_bound[0], bound_by=z0_bound[1],
+          share_of_bound=z0_bound[0] / z0_ms["z0"],
+          bf16_solve_first_step_mg=bf_first, bf16_solve_max_mg=bf_all,
+          bf16_solve_dual_excess=bf_y,
+          bf16_tol="first step 0.005 m*g, all 0.03 m*g, y 1e-3 + 1e-3 |y|",
+          card=json.dumps(smi))
+    if not (bf_first <= 0.005 and bf_all <= 0.03 and bf_y <= 1e-3):
+        raise RuntimeError("bf16-head solve on the card differs from the "
+                           "CPU's")
+
+    # 28. Dense against structured condensation on the card, B=2048.
+    rpy, feet, x0_s = (torch.as_tensor(a, device=dev) for a in
+                       problems.bench_states(BATCH, 0.0,
+                                             np.random.default_rng(0)))
+    x_des = x0_s[:, None, :].repeat(1, 10, 1)
+    x_des[..., 9] = 0.4
+    a_ct, b_ct = srb_mod.srb_continuous(
+        se3_mod.rpy_to_rotmat(rpy), params.total_inertia, params.total_mass,
+        feet)
+    ad, bd = srb_mod.srb_discretize(a_ct, b_ct, problems.DT_MPC)
+    w = torch.tensor(problems.STATE_WEIGHTS, dtype=torch.float32, device=dev)
+    p_d, q_d = condense.condense_cost(ad, bd, x0_s, x_des, w,
+                                      problems.FORCE_WEIGHT, 10)
+    p_s, q_s = condense.condense_cost_structured(
+        a_ct, bd, ad, x0_s, x_des, w, problems.FORCE_WEIGHT, 10,
+        problems.DT_MPC)
+    rel_p = ((p_d - p_s).abs().max() / p_s.abs().max()).item()
+    rel_q = ((q_d - q_s).abs().max() / q_s.abs().max()).item()
+    phase(f"condense:dense:B{BATCH}", rel_err_p=rel_p, rel_err_q=rel_q,
+          tol=DENSE_REL)
+    if not (rel_p <= DENSE_REL and rel_q <= DENSE_REL):
+        raise RuntimeError("dense condensation differs from the structured "
+                           "one")
+
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
@@ -1606,6 +1892,13 @@ def main() -> int:
         "max_abs_dforce_boot_n192_N": timing["boot_n192"][4],
         "ms_bench": loop_bench[0], "plain_ms_bench": loop_bench[1],
         "bound_ms_bench": loop_bench[2]["bound_ms"],
+        "launches_minv_reuse": minv_launches,
+        "ms_minv_reuse": minv_k1[10][0], "plain_ms_minv_reuse": minv_k1[10][1],
+        "bound_ms_minv_reuse": minv_k1[10][2][0],
+        "max_abs_err_minv_reuse": minv_k1[10][3],
+        "ms_z0": z0_ms["z0"], "ms_no_z0": z0_ms["none"],
+        "plain_ms_z0": z0_plain_ms, "bound_ms_z0": z0_bound[0],
+        "max_abs_err_z0": z0_err,
     }, {
         "name": "fused_full_solve", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/fused_full_solve.cu",

@@ -149,6 +149,39 @@ def heuristic_foothold_advanced(config: SwingConfig, params: RobotParams,
     return target - torch.einsum("bji,bj->bi", r_mat, height)[:, None, :]
 
 
+def mit_foothold(config: SwingConfig, params: RobotParams,
+                 gait_config: GaitConfig, obs: RobotObservation,
+                 des: DesiredStateCommand) -> torch.Tensor:
+    """[B, 4, 3] MIT-style foothold targets, base frame (the reference's
+    ComputeMITFootHold): the hip offset turned by -wz stance / 2, a
+    roll-compensated lateral interleave, and v stance / 2 (swing / 2 in y)
+    + 0.03 (v - v_des) clipped to the foothold clip."""
+    r_mat = obs.rot_body_to_world
+    stance_t = gait_config.stance_duration                # [4] or [B, 4]
+    swing_t = gait_config.swing_duration
+    rz = se3.rot_z(-des.omega[:, 2, None] * stance_t * 0.5)  # [B, 4, 3, 3]
+    hip = params.hip_offset.expand(rz.shape[:-2] + (3,))
+    p_yaw = torch.einsum("blij,blj->bli", rz, hip)
+    interleave = torch.tensor([-0.08, 0.08, -0.08, 0.08], dtype=p_yaw.dtype,
+                              device=p_yaw.device)
+    zero4 = torch.zeros_like(interleave)
+    lateral = torch.einsum("bij,lj->bli", se3.rot_x(obs.base_rpy[:, 0]),
+                           torch.stack([zero4, interleave, zero4], dim=-1))
+    pf = _rotate(r_mat, p_yaw + lateral)
+    v_w = obs.base_vel_world
+    v_des_w = torch.einsum("bij,bj->bi", r_mat, des.velocity)
+    pfx = torch.clamp(v_w[:, 0, None] * stance_t * 0.5
+                      + 0.03 * (v_w[:, 0, None] - v_des_w[:, 0, None]),
+                      -config.foothold_clip, config.foothold_clip)
+    pfy = torch.clamp(v_w[:, 1, None] * swing_t * 0.5
+                      + 0.03 * (v_w[:, 1, None] - v_des_w[:, 1, None]),
+                      -config.foothold_clip, config.foothold_clip)
+    pf = torch.stack([pf[..., 0] + pfx, pf[..., 1] + pfy,
+                      (config.foot_clearance - des.position[:, 2, None])
+                      .expand(pfx.shape)], dim=-1)
+    return _rotate_t(r_mat, pf)
+
+
 def swing_step(config: SwingConfig, params: RobotParams,
                gait_config: GaitConfig, gait_state: GaitState,
                state: SwingState, obs: RobotObservation,

@@ -111,6 +111,53 @@ def rpy_to_rotmat(rpy: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def rotmat_to_rpy(r: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3] (roll, pitch, yaw); pitch in (-pi/2, pi/2)."""
+    roll = torch.atan2(r[..., 2, 1], r[..., 2, 2])
+    pitch = torch.atan2(-r[..., 2, 0],
+                        torch.sqrt(r[..., 2, 1] ** 2 + r[..., 2, 2] ** 2))
+    yaw = torch.atan2(r[..., 1, 0], r[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def rotmat_to_quat(r: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 4] (w, x, y, z), branch-free Shepperd: all four
+    candidate quaternions, the one of the largest pivot taken per element,
+    w >= 0, normalized."""
+    tr = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
+    pivots = torch.stack([torch.clamp(1.0 + tr, min=0.0)]
+                         + [torch.clamp(1.0 + 2 * r[..., i, i] - tr, min=0.0)
+                            for i in range(3)], dim=-1)      # 4 q_i^2
+    sq = torch.sqrt(pivots)
+    sw, sx, sy, sz = sq.unbind(-1)
+
+    def div(a, b):
+        return a / torch.clamp(b, min=1e-12)
+
+    def el(i, j):
+        return r[..., i, j]
+
+    cands = torch.stack([
+        torch.stack([0.5 * sw, div(el(2, 1) - el(1, 2), 2 * sw),
+                     div(el(0, 2) - el(2, 0), 2 * sw),
+                     div(el(1, 0) - el(0, 1), 2 * sw)], dim=-1),
+        torch.stack([div(el(2, 1) - el(1, 2), 2 * sx), 0.5 * sx,
+                     div(el(0, 1) + el(1, 0), 2 * sx),
+                     div(el(0, 2) + el(2, 0), 2 * sx)], dim=-1),
+        torch.stack([div(el(0, 2) - el(2, 0), 2 * sy),
+                     div(el(0, 1) + el(1, 0), 2 * sy), 0.5 * sy,
+                     div(el(1, 2) + el(2, 1), 2 * sy)], dim=-1),
+        torch.stack([div(el(1, 0) - el(0, 1), 2 * sz),
+                     div(el(0, 2) + el(2, 0), 2 * sz),
+                     div(el(1, 2) + el(2, 1), 2 * sz), 0.5 * sz], dim=-1),
+    ], dim=-2)                                               # [..., 4, 4]
+    idx = torch.argmax(pivots, dim=-1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(
+        idx.shape + (1, 4)))[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """[..., 4] (w, x, y, z) unit quaternion -> [..., 3, 3] rotation."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

@@ -12,6 +12,11 @@ import numpy as np
 import torch
 
 
+def phase_remap(phi: torch.Tensor) -> torch.Tensor:
+    """The reference's swing-phase warp 0.8 sin(pi phi) (1 - phi) + phi."""
+    return 0.8 * torch.sin(torch.pi * phi) * (1 - phi) + phi
+
+
 def cubic_hermite(p0, v0, p1, v1, phi):
     """Cubic Hermite on [0,1]: returns (pos, vel_per_unit_phase)."""
     t = phi
@@ -73,6 +78,12 @@ _KNOTS = np.concatenate([
     np.ones(_DEGREE + 1),
 ])
 _CTRL_Z = np.array([0.0, 0.0, 0.35, 0.8, 1.0, 0.8, 0.35, 0.05, 0.0])
+
+
+def default_swing_ctrl_z(clearance: float = 1.0) -> np.ndarray:
+    """The normalized 9-point Z swing template (0 -> apex = clearance -> 0)
+    that `swing_bspline` uses, as a numpy array."""
+    return _CTRL_Z * clearance
 
 
 def bspline_basis(phi: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@
 //     that its dot does this; a Newton-Schulz inverse is symmetric only to
 //     roundoff);
 //   * 1/rho is taken once per row before the loop and multiplied after;
-//   * z_0 = clip(A x_0, lo, hi).
+//   * z_0 = clip(A x_0, lo, hi), or the z_0 the caller gives (the carried
+//     iterate of a loop that ran its first iterations elsewhere: the z of
+//     an iterate is clip(z_r + y / rho), not clip(A x)).
 // A = A0 + mu A1 is applied as the per-triple 5x3 pattern (rows fx + mu fz,
 // -fx + mu fz, fy + mu fz, -fy + mu fz, fz), never as a dense matrix, and mu
 // is per problem. The live sizes n = 12 G and m = 20 G are runtime
@@ -171,14 +173,16 @@ __device__ __forceinline__ void write_rhs(const Vectors& v, const Lane& ln,
 }
 
 // Zeroes rhs and x_t, loads problem b's entries of this lane and forms
-// z_0 = clip(A x_0, lo, hi), z_hat, y_hat. Returns the lane's state.
+// z_0 (z0[r] where z0 is not null, else clip(A x_0, lo, hi)), z_hat, y_hat.
+// Returns the lane's state.
 __device__ inline Lane load(const Vectors& v, int n, size_t b, float mu,
                             const float* __restrict__ q,
                             const float* __restrict__ lo,
                             const float* __restrict__ hi,
                             const float* __restrict__ rho,
                             const float* __restrict__ x0,
-                            const float* __restrict__ y0) {
+                            const float* __restrict__ y0,
+                            const float* __restrict__ z0) {
   const int m = rows(n);
   for (int i = threadIdx.x; i < kVecPad; i += blockDim.x) {
     v.rhs[i] = 0.0f;
@@ -195,7 +199,9 @@ __device__ inline Lane load(const Vectors& v, int n, size_t b, float mu,
     ln.rho = rho[r];
     ln.rinv = 1.0f / ln.rho;
     ln.y = y0[r];
-    ln.z = clip(cone_row(xs[0], xs[1], xs[2], ln.k, mu), ln.lo, ln.hi);
+    ln.z = z0 != nullptr
+               ? z0[r]
+               : clip(cone_row(xs[0], xs[1], xs[2], ln.k, mu), ln.lo, ln.hi);
     ln.zh = ln.z;
     ln.yh = ln.y;
   }

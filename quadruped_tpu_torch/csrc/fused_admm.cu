@@ -26,6 +26,12 @@
 // warps) per SM, where the previous design ran 3 blocks of 4 warps. The 64
 // floats of M^{-1} a thread are what keeps a third block out. n = 192 runs
 // 768 threads a block (S = 16 lanes a column), one block per SM.
+//
+// z0 may be null (z_0 = clip(A x_0, lo, hi), the Pallas kernel's start) or
+// the [B, m] z of a loop that ran its first iterations elsewhere (the
+// solver's bf16 head): the loop then continues from (x0, z0, y0). The two
+// starts are separate instantiations (kZ0), so the null one compiles to
+// the kernel without the pointer.
 
 #include <cuda_runtime.h>
 
@@ -33,21 +39,23 @@
 
 namespace {
 
-template <int S, int R, int kMaxThreads, int kMinBlocks>
+template <int S, int R, int kMaxThreads, int kMinBlocks, bool kZ0>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) fused_admm_kernel(
     const float* __restrict__ m_inv, const float* __restrict__ q,
     const float* __restrict__ mu, const float* __restrict__ lo,
     const float* __restrict__ hi, const float* __restrict__ rho,
     const float* __restrict__ x0, const float* __restrict__ y0,
-    float* __restrict__ x_out, float* __restrict__ y_out, int n, int iters,
-    float sigma, float alpha, int accel_restart) {
+    const float* __restrict__ z0, float* __restrict__ x_out,
+    float* __restrict__ y_out, int n, int iters, float sigma, float alpha,
+    int accel_restart) {
   extern __shared__ float smem[];
   const size_t b = blockIdx.x;
   const admm::Vectors v = admm::carve(smem);
   const float mub = mu[b];
   admm::Slice<S, R> slice;
   admm::load_slice(slice, m_inv + b * n * n, n, n);
-  admm::Lane lane = admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0);
+  admm::Lane lane =
+      admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0, kZ0 ? z0 : nullptr);
   admm::iterate(slice, v, lane, n, mub, iters, sigma, alpha, accel_restart);
   admm::store(lane, n, b, x_out, y_out);
 }
@@ -55,8 +63,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) fused_admm_kernel(
 template <int S, int R, int kMaxThreads, int kMinBlocks>
 int launch(const void* m_inv, const void* q, const void* mu, const void* lo,
            const void* hi, const void* rho, const void* x0, const void* y0,
-           void* x_out, void* y_out, int batch, int n, int iters, float sigma,
-           float alpha, int accel_restart, cudaStream_t stream) {
+           const void* z0, void* x_out, void* y_out, int batch, int n,
+           int iters, float sigma, float alpha, int accel_restart,
+           cudaStream_t stream) {
   // S lanes for each group of four columns in whole warps, and six lanes
   // a force triple.
   int threads = ((S * ((n + 3) / 4) + 31) / 32) * 32;
@@ -64,41 +73,45 @@ int launch(const void* m_inv, const void* q, const void* mu, const void* lo,
   if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = admm::kVectorFloats * sizeof(float);
   if (batch == 0) return 0;
-  fused_admm_kernel<S, R, kMaxThreads, kMinBlocks>
-      <<<batch, threads, smem, stream>>>(
-          static_cast<const float*>(m_inv), static_cast<const float*>(q),
-          static_cast<const float*>(mu), static_cast<const float*>(lo),
-          static_cast<const float*>(hi), static_cast<const float*>(rho),
-          static_cast<const float*>(x0), static_cast<const float*>(y0),
-          static_cast<float*>(x_out), static_cast<float*>(y_out), n, iters,
-          sigma, alpha, accel_restart);
+  auto kernel = z0 != nullptr
+                    ? fused_admm_kernel<S, R, kMaxThreads, kMinBlocks, true>
+                    : fused_admm_kernel<S, R, kMaxThreads, kMinBlocks, false>;
+  kernel<<<batch, threads, smem, stream>>>(
+      static_cast<const float*>(m_inv), static_cast<const float*>(q),
+      static_cast<const float*>(mu), static_cast<const float*>(lo),
+      static_cast<const float*>(hi), static_cast<const float*>(rho),
+      static_cast<const float*>(x0), static_cast<const float*>(y0),
+      static_cast<const float*>(z0), static_cast<float*>(x_out),
+      static_cast<float*>(y_out), n, iters, sigma, alpha, accel_restart);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = success).
-// n must be a multiple of 3 and of 4 (n = 12 G) and at most 192.
+// n must be a multiple of 3 and of 4 (n = 12 G) and at most 192; z0 may be
+// null.
 extern "C" int fused_admm_launch(const void* m_inv, const void* q,
                                  const void* mu, const void* lo,
                                  const void* hi, const void* rho,
-                                 const void* x0, const void* y0, void* x_out,
-                                 void* y_out, int batch, int n, int iters,
-                                 float sigma, float alpha, int accel_restart,
+                                 const void* x0, const void* y0,
+                                 const void* z0, void* x_out, void* y_out,
+                                 int batch, int n, int iters, float sigma,
+                                 float alpha, int accel_restart,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n % 12 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 64)
-    return launch<8, 8, 256, 2>(m_inv, q, mu, lo, hi, rho, x0, y0, x_out,
-                                y_out, batch, n, iters, sigma, alpha,
+    return launch<8, 8, 256, 2>(m_inv, q, mu, lo, hi, rho, x0, y0, z0,
+                                x_out, y_out, batch, n, iters, sigma, alpha,
                                 accel_restart, st);
   if (n <= 128)
-    return launch<8, 16, 256, 2>(m_inv, q, mu, lo, hi, rho, x0, y0, x_out,
-                                 y_out, batch, n, iters, sigma, alpha,
+    return launch<8, 16, 256, 2>(m_inv, q, mu, lo, hi, rho, x0, y0, z0,
+                                 x_out, y_out, batch, n, iters, sigma, alpha,
                                  accel_restart, st);
   if (n <= 192)
-    return launch<16, 12, 768, 1>(m_inv, q, mu, lo, hi, rho, x0, y0, x_out,
-                                  y_out, batch, n, iters, sigma, alpha,
-                                  accel_restart, st);
+    return launch<16, 12, 768, 1>(m_inv, q, mu, lo, hi, rho, x0, y0, z0,
+                                  x_out, y_out, batch, n, iters, sigma,
+                                  alpha, accel_restart, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -227,7 +227,8 @@ __global__ void __launch_bounds__(tc::kThreads, 2) fused_full_solve_kernel(
   admm::Slice<kS, kR> slice;
   admm::load_slice(slice, s_x, n, n);
   const float mub = mu[b];
-  admm::Lane lane = admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0);
+  admm::Lane lane =
+      admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0, nullptr);
   admm::iterate(slice, v, lane, n, mub, iters, sigma, alpha, accel_restart);
   admm::store(lane, n, b, x_out, y_out);
 }

@@ -68,6 +68,18 @@ def srb_discretize(a: torch.Tensor, b: torch.Tensor, dt):
     return ad, bd
 
 
+def srb_dynamics(x: torch.Tensor, forces: torch.Tensor,
+                 inertia_body: torch.Tensor, mass: torch.Tensor,
+                 r_feet: torch.Tensor) -> torch.Tensor:
+    """Continuous xdot = A(x) x + B(x) u for simulation and checks; forces
+    [..., 4, 3] world-frame ground reaction forces."""
+    a, b = srb_continuous(se3.rpy_to_rotmat(x[..., 0:3]), inertia_body, mass,
+                          r_feet)
+    u = forces.reshape(forces.shape[:-2] + (NU,))
+    return (torch.einsum("...ij,...j->...i", a, x)
+            + torch.einsum("...ij,...j->...i", b, u))
+
+
 def srb_initial_state(rpy, pos, omega_world, vel_world) -> torch.Tensor:
     """Pack the 13-state vector (appends the gravity state)."""
     parts = [rpy, pos, omega_world, vel_world]

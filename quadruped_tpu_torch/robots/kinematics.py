@@ -127,3 +127,27 @@ def map_contact_forces_to_torques(params: RobotParams, q: torch.Tensor,
     j = all_leg_jacobians(params, q)
     tau = torch.einsum("...lji,...lj->...li", j, forces_base)
     return tau.reshape(tau.shape[:-2] + (12,))
+
+
+def estimate_foot_forces_from_torques(params: RobotParams, q: torch.Tensor,
+                                      tau: torch.Tensor,
+                                      damping: float = 1e-4) -> torch.Tensor:
+    """Per-leg contact force from joint torques, F = J^{-T} tau, solved
+    damped on J^T so an extended leg gives a bounded force: tau [..., 12]
+    -> [..., 4, 3] base-frame forces."""
+    j = all_leg_jacobians(params, q)
+    taul = tau.reshape(tau.shape[:-1] + (4, 3))
+    return damped_jacobian_solve(j.transpose(-1, -2), taul, damping)
+
+
+def estimate_moment(params: RobotParams, q: torch.Tensor,
+                    tau: torch.Tensor) -> torch.Tensor:
+    """The reference's ComputeMoment: sum_l p_l x F_l divided elementwise by
+    the summed estimated foot force, whose magnitude is held at >= 1 N
+    (a lever-arm estimate). Returns [..., 3]."""
+    f = estimate_foot_forces_from_torques(params, q, tau)
+    p = foot_positions_in_base_frame(params, q)
+    moment = torch.sum(torch.linalg.cross(p, f, dim=-1), dim=-2)
+    fsum = torch.sum(f, dim=-2)
+    sign = torch.where(fsum < 0, -1.0, 1.0)
+    return moment / (sign * torch.clamp(torch.abs(fsum), min=1.0))

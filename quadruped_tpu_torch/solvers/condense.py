@@ -1,6 +1,11 @@
 """Horizon condensation of the MPC cost (port of quadruped_tpu/solvers/condense.py).
 
-`condense_cost_structured` folds the horizon into
+The dense path (`condense_dynamics`, `condense_cost`, `condense_qp` with
+the dense cone matrix of `build_cone_constraints`) stacks the horizon's
+powers of Ad into Aqp [13H, 13] and the block Toeplitz Bqp [13H, 12H] and
+forms P and q from them, as the reference's condensation does; the
+solvers never take the dense cone matrix (cone_qp applies the pyramid per
+triple). `condense_cost_structured` folds the horizon into
 P = 2 (Bqp^T L Bqp + alpha I), q = 2 Bqp^T L (Aqp x0 - Xd) through the SRB
 nilpotency: the Toeplitz blocks are linear in the step offset, so P
 collapses to four 12x12 matrices combined with static [H, H] coefficient
@@ -11,13 +16,94 @@ the long-horizon configuration's way to keep n = 12 G small.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from quadruped_tpu_torch.dynamics.srb import NX, NU
+from quadruped_tpu_torch.utils import card
 
 BIG = 1e8
 CONE_ROWS = 5  # per leg per step
+
+
+class CondensedQP(NamedTuple):
+    p: torch.Tensor       # [..., 12H, 12H]
+    q: torch.Tensor       # [..., 12H]
+    a: torch.Tensor       # [..., 5*4*H, 12H] friction constraint matrix
+    l: torch.Tensor       # [..., 5*4*H]
+    u: torch.Tensor       # [..., 5*4*H]
+
+
+def horizon_powers(ad: torch.Tensor, horizon: int) -> torch.Tensor:
+    """[..., 13, 13] -> [..., H, 13, 13] with entry k = Ad^(k+1)."""
+    powers = [ad]
+    for _ in range(horizon - 1):
+        powers.append(ad @ powers[-1])
+    return torch.stack(powers, dim=-3)
+
+
+def condense_dynamics(ad: torch.Tensor, bd: torch.Tensor, horizon: int):
+    """(Aqp [..., 13H, 13], Bqp [..., 13H, 12H]) from one-step (Ad, Bd):
+    Bqp[k, j] = Ad^(k-j) Bd for j <= k (block lower-triangular Toeplitz)."""
+    batch = ad.shape[:-2]
+    powers = horizon_powers(ad, horizon)
+    aqp = powers.reshape(batch + (horizon * NX, NX))
+    eye = torch.eye(NX, dtype=ad.dtype, device=ad.device) \
+        .expand(batch + (1, NX, NX))
+    pow0 = torch.cat([eye, powers[..., :horizon - 1, :, :]], dim=-3)
+    blocks = torch.einsum("...dij,...jk->...dik", pow0, bd)  # Ad^d Bd
+    zero_block = torch.zeros_like(blocks[..., 0, :, :])
+    rows = [torch.cat([blocks[..., k - j, :, :] if j <= k else zero_block
+                       for j in range(horizon)], dim=-1)
+            for k in range(horizon)]
+    return aqp, torch.cat(rows, dim=-2)
+
+
+def cone_constraint_pattern(dtype=torch.float32, device=None) -> torch.Tensor:
+    """Static [5, 3] friction-pyramid row pattern of one (step, leg), mu
+    placeholders 1 (scaled by mu at build time); on the card unless
+    `device` says otherwise."""
+    return torch.tensor([[1.0, 0.0, 1.0],     # fx + mu fz in [0, BIG]
+                         [-1.0, 0.0, 1.0],    # -fx + mu fz in [0, BIG]
+                         [0.0, 1.0, 1.0],     # fy + mu fz in [0, BIG]
+                         [0.0, -1.0, 1.0],    # -fy + mu fz in [0, BIG]
+                         [0.0, 0.0, 1.0]],    # fz in [fz_min, contact fmax]
+                        dtype=dtype, device=card.resolve(device))
+
+
+def build_cone_constraints(mu: torch.Tensor, fmax: torch.Tensor,
+                           contact_table: torch.Tensor, horizon: int,
+                           fz_min: float = 0.0):
+    """Dense block-diagonal cone matrix A [..., 20H, 12H] and bounds l, u
+    [..., 20H] from mu [...], the per-leg max vertical force fmax [...]
+    and the contact table [..., H, 4] (1 stance, 0 swing: fz capped at 0)."""
+    batch = contact_table.shape[:-2]
+    dtype, device = contact_table.dtype, contact_table.device
+    pat = cone_constraint_pattern(dtype, device)
+    pat[:4, 2] = 0.0                        # the mu column, filled below
+    mu_b = torch.as_tensor(mu, dtype=dtype, device=device) \
+        .expand(batch)[..., None, None, None, None]
+    mu_col = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=dtype,
+                          device=device)[:, None] \
+        * torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    blocks = pat.expand(batch + (horizon, 4, CONE_ROWS, 3)) + mu_b * mu_col
+    n_forces = horizon * 4
+    blocks_flat = blocks.reshape(batch + (n_forces, CONE_ROWS, 3))
+    eye = torch.eye(n_forces, dtype=dtype, device=device)
+    a = torch.einsum("...frc,fg->...frgc", blocks_flat, eye) \
+        .reshape(batch + (n_forces * CONE_ROWS, n_forces * 3))
+    contact = contact_table.reshape(batch + (n_forces,))
+    zero = torch.zeros_like(contact)
+    big = torch.full_like(contact, BIG)
+    fmax_b = torch.as_tensor(fmax, dtype=dtype, device=device) \
+        .expand(batch)[..., None]
+    lower = torch.stack([zero, zero, zero, zero,
+                         torch.full_like(contact, fz_min) * contact], dim=-1)
+    upper = torch.stack([big, big, big, big, contact * fmax_b], dim=-1)
+    return (a, lower.reshape(batch + (n_forces * CONE_ROWS,)),
+            upper.reshape(batch + (n_forces * CONE_ROWS,)))
 
 
 def _coefficient_tables(horizon: int) -> np.ndarray:
@@ -79,6 +165,34 @@ def condense_cost_structured(a_ct, bd, ad, x0, x_des, state_weights,
     qc = torch.einsum("...ji,...hj->...hi", c_mat, s1)
     qvec = 2.0 * (qb + qc).reshape(batch + (horizon * NU,))
     return p, qvec
+
+
+def condense_cost(ad, bd, x0, x_des, state_weights, force_weight,
+                  horizon: int):
+    """Cost-only dense condensation: (P [..., 12H, 12H], q [..., 12H]) from
+    (Ad [..., 13, 13], Bd [..., 13, 12]), x0 [..., 13], x_des [..., H, 13]
+    and the [13] state weights L: P = 2 (Bqp^T L Bqp + alpha I),
+    q = 2 Bqp^T L (Aqp x0 - Xd). Equal to `condense_cost_structured` to
+    float32 roundoff."""
+    batch = x0.shape[:-1]
+    aqp, bqp = condense_dynamics(ad, bd, horizon)
+    lw = state_weights.repeat(horizon)
+    lbqp = lw[..., :, None] * bqp
+    p = 2.0 * (bqp.transpose(-1, -2) @ lbqp
+               + force_weight * torch.eye(horizon * NU, dtype=bqp.dtype,
+                                          device=bqp.device))
+    xd = x_des.reshape(batch + (horizon * NX,))
+    resid = torch.einsum("...ij,...j->...i", aqp, x0) - xd
+    return p, 2.0 * torch.einsum("...ji,...j->...i", lbqp, resid)
+
+
+def condense_qp(ad, bd, x0, x_des, state_weights, force_weight, mu, fmax,
+                contact_table, horizon: int) -> CondensedQP:
+    """The full condensed QP: the dense cost and the dense cone rows."""
+    p, q = condense_cost(ad, bd, x0, x_des, state_weights, force_weight,
+                         horizon)
+    a, l, u = build_cone_constraints(mu, fmax, contact_table, horizon)
+    return CondensedQP(p=p, q=q, a=a, l=l, u=u)
 
 
 # ---------------------------------------------------------------------------

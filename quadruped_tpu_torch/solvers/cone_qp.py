@@ -7,8 +7,18 @@ Newton-Schulz inverse of M (plain `torch.matmul`, as the JAX package leaves
 it to XLA outside any kernel), then the ADMM loop. The loop is the
 `fused_admm` kernel (solvers/fused_admm.py): the JAX package's `solve` and
 `solve_fused` compute the same thing, so the port has one function, the
-closed loop's solver. `solve_fused_full` hands M itself to the
-`fused_full_solve` kernel, which inverts it and runs the loop on chip.
+closed loop's solver, and no `solve_fused`. `solve_fused_full` hands M
+itself to the `fused_full_solve` kernel, which inverts it and runs the loop
+on chip.
+
+Two options of the JAX `solve` are here too, both off by default. The
+cross-cadence inverse carry (`InverseCarry`, `seeded_inverse`): the
+previous cadence solve's M^{-1}, rescaled through both equilibrations,
+corrected for the pin flips by a block Woodbury update and polished by a
+short Newton-Schulz run, in place of the cold 11-step inverse. The bf16
+head (`bf16_iters`): the first iterations of the relaxed loop with M^{-1}
+rounded to bf16, in torch ops as JAX runs them in XLA, and the float32
+rest in the kernel, which continues from the head's (x, z, y).
 
 Batch-first: `ConeQP.p` is [B, n, n] with n = 3T, `mu` is [B].
 """
@@ -16,11 +26,14 @@ Batch-first: `ConeQP.p` is [B, n, n] with n = 3T, `mu` is [B].
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from quadruped_tpu_torch.solvers.fused_admm import fused_admm
+from quadruped_tpu_torch.solvers.fused_admm import (_apply_a, _apply_at,
+                                                    fused_admm)
 from quadruped_tpu_torch.solvers.fused_full_solve import fused_full_solve
 
 SIGMA = 1e-6
@@ -28,6 +41,11 @@ ALPHA = 1.6
 RHO_CONE = 0.05
 NS_ITERS = 11
 BIG = 1e8
+# Post-polish probe residual above which `seeded_inverse(rescue_iters > 0)`
+# replaces a scenario's inverse by the cold one: several times what a
+# single-polish inverse leaves (max|I - MX| ~1e-3), far below a diverged
+# polish.
+RESCUE_RESID = 1e-2
 
 
 @dataclasses.dataclass
@@ -62,6 +80,31 @@ class AdmmInputs(NamedTuple):
     y0: torch.Tensor      # [B, 5T]
     d: torch.Tensor       # [B, n] variable scaling
     gamma: torch.Tensor   # [B] cost normalization
+    d_t: torch.Tensor     # [B, T] per-triple scaling (d = d_t repeated)
+    pinned: torch.Tensor  # [B, T] 1.0 where fz_hi ~ fz_lo (the 100x rows)
+
+
+class InverseCarry(NamedTuple):
+    """What `solve` carries from one cadence solve to the next for
+    `seeded_inverse` (JAX cone_qp.InverseCarry): the inverse of the scaled
+    M, the scales it was built with and its pin pattern.
+
+    M changes between 15 ms cadence solves by a small drift of the
+    equilibrated cost and by a jump of +/- 99 rho on the fz diagonal of
+    every triple whose pin flips with the trot table: one coordinate
+    rank-1 term a flipped triple, which the Woodbury step removes exactly.
+    `rho` is the rho the carried inverse was built with ([B] from `solve`,
+    or a float): the Woodbury step sizes the jumps it removes with it and
+    the jumps it adds with the new solve's rho. A change of the base rho
+    on the unpinned rows is not removed; the polish absorbs it as a small
+    drift, so a carry is meant for solves at the same rho up to a few
+    percent (the JAX package's rule, mirrored)."""
+
+    m_inv: torch.Tensor   # [B, n, n]
+    d_t: torch.Tensor     # [B, T]
+    gamma: torch.Tensor   # [B]
+    pinned: torch.Tensor  # [B, T] float
+    rho: torch.Tensor | float = RHO_CONE
 
 
 def cone_pattern(mu: torch.Tensor) -> torch.Tensor:
@@ -78,6 +121,34 @@ def cone_pattern(mu: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 and back: a float32 product of two such operands
+    with TF32 off is the float32 sum of exact bf16 products, what the JAX
+    code's bf16 dots with preferred_element_type=float32 compute."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _newton_schulz_steps(m: torch.Tensor, x: torch.Tensor, n_bf: int,
+                         n_f32: int) -> torch.Tensor:
+    """Newton-Schulz steps X <- X (2I - M X) from the seed x: `n_bf` with X
+    carried in bf16 and float32 products of the bf16 operands, then `n_f32`
+    in float32. With n_bf = 0 the seed is used as it is."""
+    n = m.shape[-1]
+    eye2 = 2.0 * torch.eye(n, dtype=m.dtype, device=m.device)
+    if n_bf > 0:
+        x_bf = x.to(torch.bfloat16)
+        m_bf = _bf16(m)
+        for _ in range(n_bf):
+            xf = x_bf.to(m.dtype)
+            inner = eye2 - torch.matmul(m_bf, xf)
+            x_bf = torch.matmul(xf, _bf16(inner)).to(torch.bfloat16)
+        x = x_bf
+    x = x.to(m.dtype)
+    for _ in range(n_f32):
+        x = torch.matmul(x, eye2 - torch.matmul(m, x))
+    return x
+
+
 def newton_schulz_inverse(m: torch.Tensor, iters: int = NS_ITERS,
                           f32_polish: int = 2) -> torch.Tensor:
     """Batched SPD inverse by Newton-Schulz, X <- X (2I - M X), X0 = I/||M||_inf.
@@ -90,21 +161,125 @@ def newton_schulz_inverse(m: torch.Tensor, iters: int = NS_ITERS,
     """
     n = m.shape[-1]
     norminf = torch.amax(torch.sum(torch.abs(m), dim=-1), dim=-1)
-    eye2 = 2.0 * torch.eye(n, dtype=m.dtype, device=m.device)
     n_bf = max(iters - f32_polish, 0)
     x_bf = (torch.eye(n, dtype=torch.bfloat16, device=m.device)
             / norminf.to(torch.bfloat16)[..., None, None])
-    if n_bf > 0:
-        m_bf = m.to(torch.bfloat16).to(m.dtype)
-        for _ in range(n_bf):
-            xf = x_bf.to(m.dtype)
-            inner = eye2 - torch.matmul(m_bf, xf)
-            x_bf = torch.matmul(
-                xf, inner.to(torch.bfloat16).to(m.dtype)).to(torch.bfloat16)
-    x = x_bf.to(m.dtype)
-    for _ in range(iters - n_bf):
-        x = torch.matmul(x, eye2 - torch.matmul(m, x))
+    return _newton_schulz_steps(m, x_bf, n_bf, iters - n_bf)
+
+
+def _capacitance_inverse(s_cap: torch.Tensor,
+                         c: torch.Tensor) -> torch.Tensor:
+    """Exact batched inverse of (I + diag(c) S) [B, T, T] by T sequential
+    Sherman-Morrison updates (row k of diag(c) S is the rank-1 term
+    c_k e_k S[k, :]): JAX's scan, kept in place of a batched LU. A singular
+    intermediate surfaces as non-finite, and `seeded_inverse` then takes
+    the cold seed. The identity starts as I + 0 S, so a non-finite S
+    propagates as it does in JAX."""
+    t = s_cap.shape[-1]
+    ainv = torch.eye(t, dtype=s_cap.dtype, device=s_cap.device) \
+        + 0.0 * s_cap
+    for k in range(t):
+        col = ainv[..., :, k]                                 # A^{-1} e_k
+        vrow = torch.matmul(s_cap[..., k:k + 1, :], ainv)[..., 0, :]
+        ck = c[..., k]
+        denom = 1.0 + ck * vrow[..., k]
+        ainv = ainv - (ck / denom)[..., None, None] \
+            * col[..., :, None] * vrow[..., None, :]
+    return ainv
+
+
+@functools.lru_cache(maxsize=None)
+def _probes(n: int, dtype: torch.dtype, device: torch.device):
+    """[n, 4] residual probes of `seeded_inverse`: the signs of
+    default_rng(7).normal(size=(n, 4)), the JAX package's draw."""
+    signs = np.sign(np.random.default_rng(7).normal(size=(n, 4)))
+    return torch.tensor(signs, dtype=dtype, device=device)
+
+
+def probe_residual(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[B] estimate of ||I - M X|| from the four sign probes: the largest
+    ||(M X - I) p|| / sqrt(n). It bounds the spectral residual from below,
+    by up to sqrt(n) where the residual lies in few directions."""
+    n = m.shape[-1]
+    probes = _probes(n, m.dtype, m.device)
+    resid = torch.matmul(m, torch.matmul(x, probes)) - probes
+    return torch.amax(torch.sqrt(torch.sum(resid * resid, dim=-2))
+                      / float(np.sqrt(n)), dim=-1)
+
+
+def seeded_inverse(m: torch.Tensor, carry: InverseCarry,
+                   d_t_new: torch.Tensor, gamma_new: torch.Tensor,
+                   pinned_new: torch.Tensor, rho: float,
+                   bf16_iters: int = 4, f32_polish: int = 1,
+                   fallback_thresh: float = 0.9,
+                   rescue_iters: int = 0) -> torch.Tensor:
+    """M^{-1} [B, n, n] from the previous cadence solve's inverse (see
+    InverseCarry; JAX cone_qp.seeded_inverse, step for step):
+
+    1. rescale X through both equilibrations, D = (d_prev / d_new)
+       sqrt(gamma_prev / gamma_new) per triple;
+    2. block Woodbury on the fz coordinates 3t + 2 of the pin flips,
+       (M + U C U^T)^{-1} = X - X U (I + C U^T X U)^{-1} C U^T X, with the
+       [T, T] capacitance inverted by `_capacitance_inverse`;
+    3. a residual estimate from four sign probes: a seed whose estimate
+       (x2 margin) passes `fallback_thresh` is damped by
+       1 / (||M||_inf ||X||_inf), which makes the polish contract for any
+       finite seed; a non-finite estimate takes the cold seed
+       I / ||M||_inf;
+    4. `bf16_iters` bf16 Newton-Schulz steps and `f32_polish` float32
+       ones; a non-finite result takes the cold seed.
+    The cold-seed selections are part of the algorithm (a garbage carry
+    degrades one solve and the next re-polishes), not a way round a
+    device.
+
+    The probe test of step 3 can pass a seed whose residual lies in one
+    direction (a pin released on a triple of weak cost curvature: the
+    Woodbury step magnifies the carried inverse's error there), and the
+    polish then diverges to finite values that step 4's test keeps; JAX
+    does the same. rescue_iters > 0 (off by default, as in JAX) measures
+    the polished inverse with the probes and gives each scenario above
+    RESCUE_RESID the cold `rescue_iters`-step Newton-Schulz inverse, on
+    those scenarios only (one host read of the count);
+    `seeded_inverse.rescued` counts them."""
+    n = m.shape[-1]
+    dtype, device = m.dtype, m.device
+
+    s_t = (carry.d_t / d_t_new) \
+        * torch.sqrt(carry.gamma / gamma_new)[..., None]
+    s = torch.repeat_interleave(s_t, 3, dim=-1)
+    x = s[..., :, None] * carry.m_inv * s[..., None, :]
+
+    rho_old = torch.as_tensor(carry.rho, dtype=dtype,
+                              device=device)[..., None]
+    c = 99.0 * (rho * pinned_new - rho_old * carry.pinned)      # [B, T]
+    xu = x[..., :, 2::3]                                        # [B, n, T]
+    utx = x[..., 2::3, :]                                       # [B, T, n]
+    a_inv = _capacitance_inverse(utx[..., :, 2::3], c)
+    x = x - torch.matmul(xu, torch.matmul(a_inv * c[..., None, :], utx))
+
+    r_est = probe_residual(m, x)
+    norminf_m = torch.amax(torch.sum(torch.abs(m), dim=-1), dim=-1)
+    norminf_x = torch.amax(torch.sum(torch.abs(x), dim=-1), dim=-1)
+    damp = torch.where(2.0 * r_est < fallback_thresh, 1.0,
+                       1.0 / (norminf_m * norminf_x))
+    x_cold = torch.eye(n, dtype=dtype, device=device) \
+        / norminf_m[..., None, None]
+    x = torch.where(torch.isfinite(r_est)[..., None, None],
+                    damp[..., None, None] * x, x_cold)
+
+    x = _newton_schulz_steps(m, x, bf16_iters, f32_polish)
+    ok = torch.isfinite(x).all(dim=-1).all(dim=-1)
+    x = torch.where(ok[..., None, None], x, x_cold)
+    if rescue_iters > 0:
+        bad = torch.nonzero(~(probe_residual(m, x) <= RESCUE_RESID))[:, 0]
+        if bad.numel() > 0:
+            x = x.index_copy(0, bad, newton_schulz_inverse(
+                m[bad], rescue_iters, f32_polish))
+            seeded_inverse.rescued += bad.numel()
     return x
+
+
+seeded_inverse.rescued = 0
 
 
 def _project(z: torch.Tensor, fz_lo: torch.Tensor, fz_hi: torch.Tensor,
@@ -170,18 +345,56 @@ def admm_operands(prob: ConeQP, rho: float, sigma: float,
               else (y0 * gamma[:, None, None]).reshape(b, 5 * t))
     return m_mat, AdmmInputs(m_inv=None, q=q_s, mu=mu, lo=lo, hi=hi,
                              rho=rho_rows.reshape(b, 5 * t).contiguous(),
-                             x0=x_init, y0=y_init, d=d, gamma=gamma)
+                             x0=x_init, y0=y_init, d=d, gamma=gamma,
+                             d_t=d_t, pinned=pinned[..., 0].to(dtype))
 
 
 def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
                 x0: torch.Tensor | None = None,
                 y0: torch.Tensor | None = None, ns_iters: int = NS_ITERS,
-                ns_f32_polish: int = 1) -> AdmmInputs:
-    """Equilibrate, build M and its Newton-Schulz inverse, and lay the
-    problem out as the ADMM kernel takes it (warm start scaled in)."""
+                ns_f32_polish: int = 1, inv_carry: InverseCarry | None = None,
+                seed_bf16_iters: int = 4,
+                seed_rescue: bool = False) -> AdmmInputs:
+    """Equilibrate, build M and its inverse, and lay the problem out as the
+    ADMM kernel takes it (warm start scaled in). The inverse is the cold
+    Newton-Schulz one, or with `inv_carry` the seeded one
+    (`seeded_inverse`: `seed_bf16_iters` bf16 steps, then `ns_f32_polish`
+    float32 ones; with `seed_rescue` its diverged scenarios get the cold
+    `ns_iters`-step inverse)."""
     m_mat, inp = admm_operands(prob, rho, sigma, x0, y0)
-    return inp._replace(
-        m_inv=newton_schulz_inverse(m_mat, ns_iters, ns_f32_polish))
+    if inv_carry is None:
+        m_inv = newton_schulz_inverse(m_mat, ns_iters, ns_f32_polish)
+    else:
+        m_inv = seeded_inverse(m_mat, inv_carry, inp.d_t, inp.gamma,
+                               inp.pinned, rho, bf16_iters=seed_bf16_iters,
+                               f32_polish=ns_f32_polish,
+                               rescue_iters=ns_iters if seed_rescue else 0)
+    return inp._replace(m_inv=m_inv)
+
+
+def bf16_head(inp: AdmmInputs, iters: int, sigma: float, alpha: float):
+    """The first `iters` iterations of the relaxed loop with M^{-1} rounded
+    to bf16 (the JAX `solve`'s bf16 loop); returns the iterate (x, z, y).
+
+    As in JAX: rhs goes in as a hi / lo pair of bf16 columns, both through
+    one product with float32 sums, and the mat-vec contracts over M^{-1}'s
+    second index (the kernel and the Pallas loop contract over the first;
+    Newton-Schulz leaves M^{-1} symmetric only to roundoff)."""
+    m_bf = _bf16(inp.m_inv)
+    x, y = inp.x0, inp.y0
+    z = torch.clamp(_apply_a(x, inp.mu), inp.lo, inp.hi)
+    for _ in range(iters):
+        rhs = sigma * x - inp.q + _apply_at(inp.rho * z - y, inp.mu)
+        rhs_hi = _bf16(rhs)
+        pair = torch.stack([rhs_hi, _bf16(rhs - rhs_hi)], dim=-1)
+        xt2 = torch.matmul(m_bf, pair)
+        x_t = xt2[..., 0] + xt2[..., 1]
+        z_rel = alpha * _apply_a(x_t, inp.mu) + (1.0 - alpha) * z
+        x = alpha * x_t + (1.0 - alpha) * x
+        z_new = torch.clamp(z_rel + y / inp.rho, inp.lo, inp.hi)
+        y = y + inp.rho * (z_rel - z_new)
+        z = z_new
+    return x, z, y
 
 
 def _unscale(prob: ConeQP, inp: AdmmInputs, x_s: torch.Tensor,
@@ -253,20 +466,50 @@ def solve(prob: ConeQP, *, iters: int = 40, rho: float = RHO_CONE,
           x0: torch.Tensor | None = None, y0: torch.Tensor | None = None,
           ns_iters: int = NS_ITERS, ns_f32_polish: int = 1,
           bf16_iters: int = 0, accel_restart: int = 0,
-          inv_carry=None, return_inv_carry: bool = False) -> ConeSolution:
+          inv_carry: InverseCarry | None = None, seed_bf16_iters: int = 4,
+          seed_rescue: bool = False, return_inv_carry: bool = False):
     """Fixed-budget ADMM on the cone QP, batch [B] first.
 
+    The JAX package's `solve` (Newton-Schulz in XLA, the loop in XLA) and
+    its `solve_fused` (the same inverse, the loop in the Pallas kernel)
+    both map to this function: the loop runs in the `fused_admm` kernel.
+
     accel_restart > 0 is Fast-ADMM (Nesterov momentum on (z, y) restarted
-    every accel_restart iterations; pass alpha=1.0 with it). The bf16 loop
-    (`bf16_iters`) and the cross-cadence inverse carry (`inv_carry`,
-    `return_inv_carry`) are not ported yet.
+    every accel_restart iterations; pass alpha=1.0 with it).
+
+    inv_carry: the previous cadence solve's carry (`return_inv_carry`) for
+    the same scenarios; M^{-1} is then `seeded_inverse` with
+    `seed_bf16_iters` bf16 steps instead of the cold Newton-Schulz inverse.
+    With return_inv_carry the function returns (ConeSolution,
+    InverseCarry). seed_rescue (off by default, as in JAX) gives the
+    scenarios whose seeded inverse diverged the cold one
+    (`seeded_inverse(rescue_iters=ns_iters)`).
+
+    bf16_iters: run the first bf16_iters iterations of the relaxed scheme
+    with M^{-1} in bf16 (`bf16_head`, torch ops) and the rest in the kernel
+    from the head's (x, z, y). It perturbs the ADMM operator by ~4e-3, which
+    the loop amplifies into tens of N on the forces (the JAX docstring's
+    measurement); off by default. Raises ValueError with accel_restart > 0,
+    as JAX does.
     """
-    if bf16_iters > 0 or inv_carry is not None or return_inv_carry:
-        raise NotImplementedError(
-            "bf16_iters, inv_carry and return_inv_carry are not ported")
+    if accel_restart > 0 and bf16_iters > 0:
+        raise ValueError("accel_restart requires the f32 loop")
     inp = admm_inputs(prob, rho=rho, sigma=sigma, x0=x0, y0=y0,
-                      ns_iters=ns_iters, ns_f32_polish=ns_f32_polish)
-    x_s, y_s = fused_admm(inp.m_inv, inp.q, inp.mu, inp.lo, inp.hi, inp.rho,
-                          inp.x0, inp.y0, iters=iters, sigma=sigma,
-                          alpha=alpha, accel_restart=accel_restart)
-    return _unscale(prob, inp, x_s, y_s)
+                      ns_iters=ns_iters, ns_f32_polish=ns_f32_polish,
+                      inv_carry=inv_carry, seed_bf16_iters=seed_bf16_iters,
+                      seed_rescue=seed_rescue)
+    n_bf = min(max(bf16_iters, 0), iters)
+    x_s, y_s, z_s = inp.x0, inp.y0, None
+    if n_bf > 0:
+        x_s, z_s, y_s = bf16_head(inp, n_bf, sigma, alpha)
+    if n_bf == 0 or iters > n_bf:
+        x_s, y_s = fused_admm(inp.m_inv, inp.q, inp.mu, inp.lo, inp.hi,
+                              inp.rho, x_s, y_s, iters=iters - n_bf,
+                              sigma=sigma, alpha=alpha,
+                              accel_restart=accel_restart, z0=z_s)
+    sol = _unscale(prob, inp, x_s, y_s)
+    if return_inv_carry:
+        return sol, InverseCarry(
+            m_inv=inp.m_inv, d_t=inp.d_t, gamma=inp.gamma, pinned=inp.pinned,
+            rho=torch.full_like(inp.gamma, rho))
+    return sol

@@ -53,18 +53,21 @@ def _apply_at(w: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 
 def fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
-                         sigma: float, alpha: float, accel_restart: int = 0):
+                         sigma: float, alpha: float, accel_restart: int = 0,
+                         z0=None):
     """The kernel's loop in plain torch ops; returns (x [B, n], y [B, m]).
 
     Same arithmetic as the kernel and as pallas_admm._admm_loop: the
     mat-vec contracts over M^{-1}'s first index, 1/rho is taken once, and
     the momentum schedule (t_k, beta) is float32 per iteration. With
     accel_restart == 0, beta is 0 and (z_hat, y_hat) = (z, y): the relaxed
-    scheme.
+    scheme. The loop starts from z0 [B, m] where it is given (an iterate
+    carried from a loop that ran the first iterations), else from
+    clip(A x0, lo, hi).
     """
     rho_inv = 1.0 / rho
     x, y = x0, y0
-    z = torch.clamp(_apply_a(x, mu), lo, hi)
+    z = torch.clamp(_apply_a(x, mu), lo, hi) if z0 is None else z0
     z_hat, y_hat = z, y
     tk = np.float32(1.0)
     for k in range(iters):
@@ -100,7 +103,7 @@ def _library():
     path, _ = cuda_build.build_shared_library(SOURCE, "fused_admm")
     lib = ctypes.CDLL(str(path))
     lib.fused_admm_launch.argtypes = (
-        [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 11
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
            ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_admm_launch.restype = ctypes.c_int
@@ -113,18 +116,22 @@ def _library():
 VECTOR_FLOATS = 2 * VEC_PAD
 
 
-def check_operands(mat, q, mu, lo, hi, rho, x0, y0, mat_name="m_inv"):
+def check_operands(mat, q, mu, lo, hi, rho, x0, y0, mat_name="m_inv",
+                   z0=None):
     """Raise on operands the ADMM kernels do not take: shapes [B, n, n],
-    [B, n], [B], [B, m] x3, [B, n], [B, m] (n = 3T, m = 5T), all float32 on
-    one device."""
+    [B, n], [B], [B, m] x3, [B, n], [B, m] and, where given, z0 [B, m]
+    (n = 3T, m = 5T), all float32 on one device."""
     b, n = q.shape
     m = (n // 3) * 5
     if n % 3:
         raise ValueError(f"n = {n} is not a whole number of force triples")
     shapes = {mat_name: (b, n, n), "q": (b, n), "mu": (b,), "lo": (b, m),
-              "hi": (b, m), "rho": (b, m), "x0": (b, n), "y0": (b, m)}
+              "hi": (b, m), "rho": (b, m), "x0": (b, n), "y0": (b, m),
+              "z0": (b, m)}
     args = {mat_name: mat, "q": q, "mu": mu, "lo": lo, "hi": hi, "rho": rho,
             "x0": x0, "y0": y0}
+    if z0 is not None:
+        args["z0"] = z0
     for name, t in args.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
@@ -136,15 +143,16 @@ def check_operands(mat, q, mu, lo, hi, rho, x0, y0, mat_name="m_inv"):
 
 
 def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
-               sigma: float, alpha: float, accel_restart: int = 0):
+               sigma: float, alpha: float, accel_restart: int = 0, z0=None):
     """Run `iters` ADMM iterations per problem; returns (x [B, n], y [B, m]).
 
     m_inv [B, n, n], q [B, n], mu [B], lo/hi/rho [B, m], x0 [B, n],
-    y0 [B, m], all float32 on one device (n = 3T, m = 5T).
+    y0 [B, m] and optionally z0 [B, m] (the loop's z to start from; None:
+    clip(A x0, lo, hi)), all float32 on one device (n = 3T, m = 5T).
     """
-    check_operands(m_inv, q, mu, lo, hi, rho, x0, y0)
+    check_operands(m_inv, q, mu, lo, hi, rho, x0, y0, z0=z0)
     kw = dict(iters=iters, sigma=sigma, alpha=alpha,
-              accel_restart=accel_restart)
+              accel_restart=accel_restart, z0=z0)
     if q.device.type == "cpu":
         return fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0, **kw)
     if q.device.type != "cuda":
@@ -157,8 +165,10 @@ def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
     x = torch.empty_like(args[6])
     y = torch.empty_like(args[7])
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    z0c = None if z0 is None else z0.contiguous()
     err = lib.fused_admm_launch(
-        *[t.data_ptr() for t in args], x.data_ptr(), y.data_ptr(),
+        *[t.data_ptr() for t in args],
+        None if z0c is None else z0c.data_ptr(), x.data_ptr(), y.data_ptr(),
         b, n, iters, sigma, alpha, accel_restart, stream)
     if err != 0:
         raise RuntimeError(f"fused_admm kernel launch failed: CUDA error "

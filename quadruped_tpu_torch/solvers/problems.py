@@ -56,6 +56,12 @@ def trot_table(batch: int, t: float, rng: np.random.Generator,
     return table.astype(np.float32)
 
 
+def stance_table(batch: int, horizon: int) -> np.ndarray:
+    """[B, H, 4] all-stance table (the JAX bench's QTPU_BENCH_TABLE=stance):
+    no triple pinned."""
+    return np.ones((batch, horizon, 4), np.float32)
+
+
 def boot_states(batch: int, horizon: int = 16, seed: int = 0,
                 device=None):
     """The arguments of `mpc_cold_start` (MpcConfig, params, gait config,

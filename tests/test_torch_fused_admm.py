@@ -7,7 +7,8 @@
 * On the card (marker `cuda`): the CUDA kernel against the plain version at
   B=256, H=5, 10 and 16 (n = 60, 120, 192), and the boot solve the closed
   loop runs at unblocked H=16 (n = 192, 400 relaxed iterations) held on
-  its unscaled first-step forces. This module imports no JAX at module level, so the card test
+  its unscaled first-step forces, and the kernel started from a carried
+  z0 (the bf16 head's). This module imports no JAX at module level, so the card test
   also runs where JAX is absent:
       python -m pytest --noconftest -p no:cacheprovider -m cuda \
           tests/test_torch_fused_admm.py
@@ -203,6 +204,36 @@ def test_kernel_matches_plain_on_card(cuda_device, horizon, iters, alpha,
     assert torch.isfinite(xk).all() and torch.isfinite(yk).all()
     torch.testing.assert_close(xk, xr, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(yk, yr, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [5, 10, 16])
+def test_kernel_z0_matches_plain_on_card(cuda_device, horizon):
+    """K1 started from a carried z0 (the state of the bf16 head after 4
+    relaxed iterations, as `cone_qp.solve(bf16_iters=4)` hands it over)
+    against the plain version from the same z0, 20 relaxed iterations,
+    B=256, n = 12 H: the limits of the test above; and z0 = None against
+    z0 = clip(A x0, lo, hi), the same start up to the kernel's contraction
+    of fx + mu fz into one rounding (the same limits)."""
+    from quadruped_tpu_torch.solvers.problems import bench_problems
+
+    prob, _ = bench_problems(256, horizon=horizon, device=cuda_device)
+    inp = tcq.admm_inputs(prob)
+    x, z, y = tcq.bf16_head(inp, 4, tcq.SIGMA, tcq.ALPHA)
+    args = (*inp[:6], x, y)
+    kw = dict(iters=20, sigma=tcq.SIGMA, alpha=tcq.ALPHA, z0=z)
+    xk, yk = tfa.fused_admm(*args, **kw)
+    xr, yr = tfa.fused_admm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(xk).all() and torch.isfinite(yk).all()
+    torch.testing.assert_close(xk, xr, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(yk, yr, atol=1e-3, rtol=1e-4)
+    z_start = torch.clamp(tfa._apply_a(x, inp.mu), inp.lo, inp.hi)
+    kw = dict(kw, z0=None)
+    xa, ya = tfa.fused_admm(*args, **kw)
+    xb, yb = tfa.fused_admm(*args, **dict(kw, z0=z_start))
+    torch.testing.assert_close(xa, xb, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(ya, yb, atol=1e-3, rtol=1e-4)
 
 
 def test_boot_problems_are_the_cold_start():
