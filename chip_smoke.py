@@ -168,6 +168,33 @@ Phases (each prints its own line; any failure raises and exits non-zero):
  28. the dense condensation (`condense.condense_cost`) against the
      structured one on the card, B=2048, H=10: max |diff| / max |value| of
      P and q within 1e-5.
+Phases 29-35 run the fleet of phase 20 (A1, Go1, Aliengo, Lite3, a
+quarter of the batch each; benchmarks/fleet_paths.py, each robot
+commanded its nominal body height less 1 cm) through every other path at
+that path's batch and configuration:
+ 29-34. `fleet:velocity` and `fleet:position` (B=2048, 40 ticks each),
+     `fleet:walk` (B=256 on the whole-body sim, 60 ticks, the first of
+     which replans the pose with the SQP), `fleet:wbc` (B=1024,
+     `MpcConfig(horizon=10)`, `WbcConfig()`, 100 ticks), `fleet:wholebody`
+     (B=1024, H10, 100 ticks) and `fleet:runner` (B=1024, the STAND_UP
+     ramp from the sitting boot on estimates, 100 ticks): ms per tick,
+     ticks/s, robot-seconds per wall second, kernels per tick and busy
+     share (over one tick, one MPC cycle of 8 where the path solves),
+     fused_admm once per batched MPC solve (the boot's cold start
+     included; none in VELOCITY, POSITION, the walk and the ramp), each
+     robot's alive share (for the runner: not dropped to PASSIVE) and
+     final height, every state finite; a robot whose alive share is below
+     0.99 is run alone on its scenarios, and its fleet share may not be
+     more than 0.01 below that;
+ 35. fused_admm on the whole-body fleet's warm MPC batch (B=1024, n=120,
+     per-row force caps of four robots) against its plain version (the
+     limits of phase 2), timed in turns with the same batch from the A1
+     alone; then each path's B=64 fleet (16 scenarios a robot, and the
+     runner also booted standing in LOCOMOTION, `runner_trot`: K1 on the
+     runner's MPC) over 12 ticks against each robot run alone at B=16
+     with one-robot parameters, on heights and joint angles at phase 22's
+     limits on the SRB sim and at the whole-body loop's CPU limits on the
+     whole-body sim (FLEET_CHECK_TOL), K1 once per solve.
 Every phase line ends with its wall time since the previous line. The last
 two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
@@ -317,6 +344,28 @@ FLEET_JAX_TEST_ROBOTS = ("a1", "go1", "lite3")
 FLEET_SINGLE_BATCH, FLEET_SINGLE_TICKS = 64, 100
 FLEET_SINGLE_TOL = {"base_height_trace": 7.3e-5, "vel_trace": 1.9e-3,
                     "forces_trace": 7.6, "q": 6.7e-4}
+# The fleet on the other paths (phases 29-35): (path, B, ticks), the four
+# robots a quarter of the batch each; the B=64 fleet of each path (16
+# scenarios a robot) against each robot alone at B=16 over 12 ticks (cut
+# from 20 to keep the new phases under 150 s; the walk's first tick
+# replans), on the base heights and the final joint angles. On the SRB sim
+# at the limits of phase 22. On the whole-body sim the card's batched
+# kernels round a row's last bit by the batch size (the B=64 fleet and
+# the A1 alone at B=16 part by 5e-10 rad of q on the first walk tick) and
+# the stiff contact grows it (1.1e-2 rad of q after 20 walk ticks, 1.7e-3
+# in the trot); there at the limits tests/test_torch_whole_body.py holds
+# the whole-body loop to between two implementations (CLOSED_TOL: height
+# 5e-4 m, q 4e-2 rad). The whole-body fleet's batch whose warm MPC solve
+# K1 is timed on.
+FLEET_PATHS = (("velocity", 2048, 40), ("position", 2048, 40),
+               ("walk", 256, 60), ("wbc", 1024, 100),
+               ("wholebody", 1024, 100), ("runner", 1024, 100))
+GRID_CHECK, FLEET_CHECK_TICKS = 64, 12
+FLEET_CHECK_TOL = {
+    "srb": {"height": FLEET_SINGLE_TOL["base_height_trace"],
+            "q": FLEET_SINGLE_TOL["q"]},
+    "whole_body": {"height": 5e-4, "q": 4e-2}}
+WB_FLEET_BATCH = 1024
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -426,6 +475,7 @@ def main() -> int:
     from quadruped_tpu_torch.utils.trace import (compare_traces, load_trace,
                                                  save_trace)
     from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
+    from quadruped_tpu_torch.benchmarks import fleet_paths as bench_paths
     from quadruped_tpu_torch.robots import named_params
     from quadruped_tpu_torch.gait import named_gait
 
@@ -1852,6 +1902,151 @@ def main() -> int:
         raise RuntimeError("dense condensation differs from the structured "
                            "one")
 
+    # 29-35. The fleet on every other path (benchmarks/fleet_paths.py):
+    # the four robots tiled to each path's batch, each path's own
+    # configuration; then K1 on the whole-body fleet's mixed caps, and the
+    # B=64 fleet of each path against each robot alone at B=16.
+    gc.collect()
+    gc.freeze()
+
+    def fleet_finite(f) -> bool:
+        return all(bool(torch.isfinite(t).all())
+                   for t in bench_paths.state_tensors(f))
+
+    def path_launches(name: str, expected: int) -> int:
+        """The kernel launches since reset_counts(): K1 `expected` times
+        (the boot's cold start and one a batched MPC solve), or none where
+        the path solves no MPC."""
+        if expected:
+            return counts_after(name, "fused_admm", expected)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        if any(counts.values()):
+            raise RuntimeError(f"{name} launched kernels: {counts}")
+        return 0
+
+    fleet_k1 = {}
+    for path, batch, ticks in FLEET_PATHS:
+        bench_paths.run(bench_paths.build(path, GRID_CHECK, dev), 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        f = bench_paths.build(path, batch, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f, tr = bench_paths.run(f, ticks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        solves = bench_paths.mpc_solves(f, ticks)
+        booted = int(bench_paths.boots_mpc(path))
+        launches = path_launches(f"fleet:{path}", booted + solves)
+        if not (fleet_finite(f) and torch.isfinite(tr["height"]).all()):
+            raise RuntimeError(f"fleet:{path}: non-finite state")
+        tick_ms = 1e3 * wall / ticks
+        cycle = (CYCLE_TICKS if bench_paths.mpc_solves(f, CYCLE_TICKS)
+                 else 1)
+        holder = [f]
+
+        def profiled(n=cycle):
+            holder[0], _ = bench_paths.run(holder[0], n)
+
+        prof = device_profile(profiled, cycle, tick_ms)
+        alive = bench_paths.per_robot(f, bench_paths.alive(f))
+        height = bench_paths.per_robot(f, bench_paths.base_height(f))
+        # Each robot's alive share against the same robot alone on the
+        # same scenarios, where the fleet's share leaves room below 1.
+        alone_alive = {}
+        for robot, share in alive.items():
+            if share < 0.99:
+                a, _ = bench_paths.run(bench_paths.alone(f, robot, dev),
+                                       ticks)
+                alone_alive[robot] = bench_paths.alive(a).mean().item()
+        phase(f"fleet:{path}:B{batch}", ticks=ticks, wall_s=wall,
+              ms_per_tick=tick_ms, ticks_per_s=batch * ticks / wall,
+              robot_seconds_per_wall_second=batch * ticks * 0.002 / wall,
+              kernel_launches=launches, mpc_solves=booted + solves,
+              alive=json.dumps({k: round(v, 4) for k, v in alive.items()}),
+              alone_alive=json.dumps(alone_alive),
+              final_height=json.dumps({k: round(v, 4)
+                                       for k, v in height.items()}),
+              **prof, card=json.dumps(smi))
+        bad = {r: (alive[r], v) for r, v in alone_alive.items()
+               if alive[r] < v - 0.01}
+        if bad:
+            raise RuntimeError(f"fleet:{path}: alive share below the robot "
+                               f"alone: {bad}")
+        fleet_k1[path] = launches
+        del f, holder
+
+    # K1 on the warm MPC batch of the whole-body fleet (n = 120, per-row
+    # force caps of four robots) against its plain version, timed in turns
+    # with the same shape from the A1 alone.
+    def capture_solve(robots):
+        """(ConeQP, K1 operands, K1 kwargs) of the first warm MPC solve of
+        the whole-body loop of the grid of `robots` at WB_FLEET_BATCH."""
+        got = []
+        solve = cone_qp.solve
+        cone_qp.solve = lambda prob, **kw: got.append((prob, kw)) or \
+            solve(prob, **kw)
+        try:
+            bench_paths.run(bench_paths.build("wholebody", WB_FLEET_BATCH,
+                                              dev, robots), CYCLE_TICKS + 1)
+        finally:
+            cone_qp.solve = solve
+        prob, kw = got[-1]
+        inp = cone_qp.admm_inputs(prob, rho=kw["rho"], x0=kw["x0"],
+                                  y0=kw["y0"])
+        return prob, inp[:8], dict(iters=kw["iters"], sigma=cone_qp.SIGMA,
+                                   alpha=kw["alpha"],
+                                   accel_restart=kw["accel_restart"])
+
+    prob_wb, args_wb, kw_wb = capture_solve(bench_fleet.ROBOTS)
+    _, args_a1, _ = capture_solve(("a1",))
+    dx_wb, dy_wb = admm_vs_plain("whole-body fleet mixed", args_wb, kw_wb)
+    max_err = max(max_err, dx_wb, dy_wb)
+    turns_wb = [card.time_ms(lambda a=a: fused_admm.fused_admm(*a, **kw_wb),
+                             20)
+                for a in (args_wb, args_a1, args_a1, args_wb)]
+    wb_k1_ms = (turns_wb[0] + turns_wb[3]) / 2
+    wb_a1_ms = (turns_wb[1] + turns_wb[2]) / 2
+    wb_plain_ms = card.time_ms(
+        lambda: fused_admm.fused_admm_reference(*args_wb, **kw_wb), 3)
+    wb_bound = bound(*admm_work(WB_FLEET_BATCH, args_wb[1].shape[1],
+                                kw_wb["iters"]))
+    phase("fleet:wholebody:k1_vs_plain", batch=WB_FLEET_BATCH,
+          n=args_wb[1].shape[1], iters=kw_wb["iters"],
+          force_caps_N=json.dumps(sorted({round(v, 3) for v in
+                                          prob_wb.fz_hi.amax(1).tolist()})),
+          max_abs_dx=dx_wb, max_abs_dy=dy_wb, tol=admm_tol,
+          kernel_ms_mixed=wb_k1_ms, kernel_ms_a1_only=wb_a1_ms,
+          kernel_ms_turns=json.dumps([round(t, 5) for t in turns_wb]),
+          plain_ms=wb_plain_ms, bound_ms=wb_bound[0], bound_by=wb_bound[1],
+          share_of_bound=wb_bound[0] / wb_k1_ms,
+          launches_wbc=fleet_k1["wbc"],
+          launches_wholebody=fleet_k1["wholebody"], card=json.dumps(smi))
+
+    # Each path's B=64 fleet (16 scenarios a robot) against each robot run
+    # alone at B=16 with one-robot parameters.
+    for path in bench_paths.PATHS:
+        reset_counts()
+        f = bench_paths.build(path, GRID_CHECK, dev)
+        f, tr = bench_paths.run(f, FLEET_CHECK_TICKS)
+        torch.cuda.synchronize()
+        check_launches = path_launches(
+            f"fleet:{path}:vs_single", int(bench_paths.boots_mpc(path))
+            + bench_paths.mpc_solves(f, FLEET_CHECK_TICKS))
+        errs = {"height": 0.0, "q": 0.0}
+        for robot in bench_fleet.ROBOTS:
+            a = bench_paths.alone(f, robot, dev)
+            a, tra = bench_paths.run(a, FLEET_CHECK_TICKS)
+            rows = torch.as_tensor(a.rows, device=dev)
+            for k in errs:
+                errs[k] = max(errs[k],
+                              (tr[k][rows] - tra[k]).abs().max().item())
+        sim = ("srb" if isinstance(f.loop, bench_paths.RolloutLoop)
+               else "whole_body")
+        hold(f"fleet:{path}:vs_single:B{GRID_CHECK}", errs,
+             dict.fromkeys(errs, 0.0), FLEET_CHECK_TOL[sim], sim=sim,
+             ticks=FLEET_CHECK_TICKS, fleet_kernel_launches=check_launches)
+
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
@@ -1885,6 +2080,14 @@ def main() -> int:
         "ms_fleet_mixed": fleet_k1_ms, "ms_fleet_a1_only": a1_k1_ms,
         "plain_ms_fleet": fleet_plain_ms, "bound_ms_fleet": fleet_bound[0],
         "max_abs_err_fleet": max(dx, dy, dx_mu, dy_mu),
+        "launches_fleet_wbc": fleet_k1["wbc"],
+        "launches_fleet_wholebody": fleet_k1["wholebody"],
+        "launches_fleet_runner": fleet_k1["runner"],
+        "ms_fleet_wholebody_mixed": wb_k1_ms,
+        "ms_fleet_wholebody_a1_only": wb_a1_ms,
+        "plain_ms_fleet_wholebody": wb_plain_ms,
+        "bound_ms_fleet_wholebody": wb_bound[0],
+        "max_abs_err_fleet_wholebody": max(dx_wb, dy_wb),
         "ms_boot_n192": timing["boot_n192"][0],
         "plain_ms_boot_n192": timing["boot_n192"][1],
         "bound_ms_boot_n192": timing["boot_n192"][2],

@@ -120,22 +120,33 @@ def _per_scenario(value, batch: int, device) -> torch.Tensor:
 
 
 def build(batch: int, device=None, noise=1.0, vx=0.2, seed: int = 0,
-          config: RunnerConfig | None = None) -> Loop:
-    """B A1 robots sitting on flat ground (base at 0.15 m, sit-down joint
-    angles), the runner booted from their true state (the MPC cold start
-    runs here); on the card unless `device` says otherwise. noise and vx:
-    numbers or [B] arrays."""
+          config: RunnerConfig | None = None,
+          params: RobotParams | None = None, body_height=0.27,
+          stand: bool = False) -> Loop:
+    """B A1 robots (or `params`: one robot, or a fleet of B) sitting on
+    flat ground (base at 0.15 m, sit-down joint angles), the runner booted
+    from their true state (the MPC cold start runs here); on the card
+    unless `device` says otherwise. With `stand` the robots stand at
+    their body height and stand angles instead, with the FSM put in
+    LOCOMOTION (the trot on estimates from the first tick). noise, vx and
+    body_height (the commanded height): numbers or [B] arrays."""
     device = card.resolve(device)
-    params = a1_params(device)
+    params = a1_params(device) if params is None else params
     model = fb.build_model(params)
     contact = wb.ContactModel()
     config = default_config(device) if config is None else config
-    sim = wb.whole_body_init(params, batch, body_height=SIT_HEIGHT)
-    sim.fb.q[:] = params.sitdown_angles
+    if stand:
+        sim = wb.whole_body_init(params, batch)
+    else:
+        sim = wb.whole_body_init(params, batch, body_height=SIT_HEIGHT)
+        sim.fb.q[:] = params.sitdown_angles
     runner = runner_init(config, params, wb.observe(params, model, sim,
                                                     contact))
+    if stand:
+        runner.fsm.state[:] = FsmState.LOCOMOTION
     cmd = TwistCommand.constant(vx=np.asarray(vx, np.float32),
-                                body_height=0.27, batch=batch, device=device)
+                                body_height=body_height, batch=batch,
+                                device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return Loop(config, params, model, contact, cmd, sim, runner,

@@ -153,12 +153,15 @@ class Loop(NamedTuple):
 
 
 def build(batch: int, device=None, config: WalkConfig | None = None,
-          vx=None) -> Loop:
-    """The bench: B A1 robots standing on flat ground on the whole-body
-    sim with the walk controller booted; on the card unless `device` says
-    otherwise. vx: [B] forward speeds (default 0.02 + 0.05 U)."""
+          vx=None, params: RobotParams | None = None,
+          body_height=0.27) -> Loop:
+    """The bench: B A1 robots (or `params`: one robot, or a fleet of B)
+    standing on flat ground on the whole-body sim with the walk controller
+    booted; on the card unless `device` says otherwise. vx: [B] forward
+    speeds (default 0.02 + 0.05 U); body_height: the commanded height, a
+    number or [B]."""
     device = card.resolve(device)
-    params = a1_params(device)
+    params = a1_params(device) if params is None else params
     model = fb.build_model(params)
     contact = wb.ContactModel()
     config = walk_config(walk_table(device)) if config is None else config
@@ -167,7 +170,8 @@ def build(batch: int, device=None, config: WalkConfig | None = None,
     sim = wb.whole_body_init(params, batch)
     walk = walk_init(config, params, wb.observe(params, model, sim, contact))
     cmd = TwistCommand.constant(vx=np.asarray(vx, np.float32),
-                                body_height=0.27, batch=batch, device=device)
+                                body_height=body_height, batch=batch,
+                                device=device)
     return Loop(config, params, cmd, sim, walk, np.zeros(batch, np.int64),
                 model, contact)
 

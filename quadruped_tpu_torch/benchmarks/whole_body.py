@@ -65,12 +65,15 @@ def default_config(device) -> LocomotionConfig:
 
 
 def build(batch: int, device=None, config: LocomotionConfig | None = None,
-          vx=None) -> Loop:
-    """B A1 robots standing on flat ground with their controllers booted
-    (the MPC cold start runs here); on the card unless `device` says
-    otherwise. vx: [B] forward speeds (default 0.2 + 0.4 U)."""
+          vx=None, params: RobotParams | None = None,
+          body_height=0.27) -> Loop:
+    """B A1 robots (or `params`: one robot, or a fleet of B) standing on
+    flat ground with their controllers booted (the MPC cold start runs
+    here); on the card unless `device` says otherwise. vx: [B] forward
+    speeds (default 0.2 + 0.4 U); body_height: the commanded height, a
+    number or [B]."""
     device = card.resolve(device)
-    params = a1_params(device)
+    params = a1_params(device) if params is None else params
     model = fb.build_model(params)
     contact = wb.ContactModel()
     config = default_config(device) if config is None else config
@@ -80,7 +83,8 @@ def build(batch: int, device=None, config: LocomotionConfig | None = None,
     ctrl = locomotion_init(config, params,
                            wb.observe(params, model, sim, contact))
     cmd = TwistCommand.constant(vx=np.asarray(vx, np.float32),
-                                body_height=0.27, batch=batch, device=device)
+                                body_height=body_height, batch=batch,
+                                device=device)
     return Loop(config, params, model, contact, cmd, sim, ctrl)
 
 

@@ -2,7 +2,9 @@
 (port of quadruped_tpu/control/actions.py).
 
 Phase-parameterized command generators that the FSM evaluates per tick: a
-smoothstep blend from the pose captured on entry to the target pose.
+smoothstep blend from the pose captured on entry to the target pose. The
+robot is one model or a fleet (`params.stack_params`: the stand, stand-up
+and sit-down angles and the gains are [B, 12], one row per scenario).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ def _hold(params: RobotParams, q: torch.Tensor) -> HybridCommand:
 
 def _blend_command(params: RobotParams, q_start: torch.Tensor,
                    q_target: torch.Tensor, phase) -> HybridCommand:
-    """q_start [B, 12] -> q_target [12] at phase [B] (smoothstep)."""
+    """q_start [B, 12] -> q_target [12] or [B, 12] at phase [B]
+    (smoothstep)."""
     s = torch.clamp(phase, 0.0, 1.0)
     s = s * s * (3.0 - 2.0 * s)
     return _hold(params, q_start + (q_target - q_start) * s[:, None])

@@ -9,8 +9,8 @@ adjuster's shift as well), optionally the whole-body controller
 torques replace the stance torques), and the masked merge of swing and
 stance commands into one 12-joint hybrid command. The statically-stable
 walk with its pose planner and load ramps is control/walk_locomotion.py.
-A fleet of robots (stacked parameters, `params.stack_params`) runs the
-ADVANCED_TROT convex-MPC path; the other modes and the WBC refuse it.
+Every mode and the WBC take one robot or a fleet of robots (stacked
+parameters, `params.stack_params`, one robot per scenario).
 """
 
 from __future__ import annotations
@@ -36,8 +36,7 @@ from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
                                                 stance_contact_mask)
 from quadruped_tpu_torch.planner import com_adjuster
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import (RobotParams,
-                                               require_one_robot)
+from quadruped_tpu_torch.robots.params import RobotParams, check_batch
 
 STANCE_KD = 3.0  # damping on stance joints (reference legCommand {0,0,0,3,tau})
 # Forward CoM offset added to the WBC body-position target.
@@ -64,16 +63,6 @@ class LocomotionConfig:
     gait_b: GaitConfig | None = None
 
 
-def _check_fleet(config: LocomotionConfig, params: RobotParams) -> None:
-    """Stacked parameters run only the ADVANCED_TROT MPC path; checked
-    once, at `locomotion_init`, which every loop starts with."""
-    if config.mode != ControlMode.ADVANCED_TROT:
-        require_one_robot(params, f"control mode {config.mode} (the "
-                          f"force-balance stance)")
-    if config.use_wbc:
-        require_one_robot(params, "the WBC (use_wbc)")
-
-
 @dataclasses.dataclass
 class LocomotionState:
     gait: GaitState
@@ -89,9 +78,10 @@ def locomotion_init(config: LocomotionConfig, params: RobotParams,
                     cold_start: bool = True) -> LocomotionState:
     """Initial controller state for the batch of `obs`; with `cold_start`
     in ADVANCED_TROT, one high-budget solve seeds the MPC warm start
-    (mpc_cold_start)."""
-    _check_fleet(config, params)
+    (mpc_cold_start). Raises ValueError when stacked `params` hold another
+    number of robots than the batch."""
     b = obs.base_position.shape[0]
+    check_batch(params, b)
     device = obs.base_position.device
     gait_state = gait_init(config.gait, b)
     mpc_state = mpc_mod.mpc_init(config.mpc, b, params.body_height, device)

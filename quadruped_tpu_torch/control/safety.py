@@ -1,12 +1,13 @@
 """Safety checks: orientation guard, tip-over envelope and torque clip,
-batched (port of quadruped_tpu/control/safety.py)."""
+batched (port of quadruped_tpu/control/safety.py); the robot is one model
+or a fleet (`params.stack_params`: its own torque limit per scenario)."""
 
 from __future__ import annotations
 
 import torch
 
 from quadruped_tpu_torch.control.types import HybridCommand, RobotObservation
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 
 MAX_ROLL_PITCH = 0.5     # rad
 HEIGHT_RANGE = (0.08, 0.45)
@@ -29,10 +30,10 @@ def check_tip_over(obs: RobotObservation) -> torch.Tensor:
 
 def clip_command(params: RobotParams, command: HybridCommand) -> HybridCommand:
     """Clip the feed-forward torque to the robot's limit."""
+    limit = per_scenario(params, params.torque_limit, command.tau.ndim)
     return HybridCommand(q=command.q, kp=command.kp, dq=command.dq,
-                         kd=command.kd, tau=torch.clamp(
-                             command.tau, -params.torque_limit,
-                             params.torque_limit))
+                         kd=command.kd, tau=torch.clamp(command.tau, -limit,
+                                                        limit))
 
 
 def damped(command: HybridCommand) -> HybridCommand:

@@ -10,7 +10,10 @@ The stance controller of the VELOCITY and POSITION locomotion modes:
     exact minimizer by the whitened ADMM + active-set polish of
     solvers/polish.py.
 
-World-frame formulation; every tensor carries the leading scenario axis.
+World-frame formulation; every tensor carries the leading scenario axis,
+and the robot is one model or a fleet (`params.stack_params`: its own
+mass, inertia, CoM offset, friction coefficient and torque limit per
+scenario).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from quadruped_tpu_torch.control.desired_state import DesiredStateCommand
 from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 from quadruped_tpu_torch.solvers import polish, qp
 
 BIG = 1e8
@@ -86,7 +89,8 @@ def mass_matrix(params: RobotParams, r_feet_world: torch.Tensor,
     """[B, 6, 12] wrench-per-force map; with r_mat the trunk inertia is
     rotated to world (I_w = R I R^T), without it the base-frame variant."""
     inv_mass = torch.eye(3, dtype=r_feet_world.dtype,
-                         device=r_feet_world.device) / params.total_mass
+                         device=r_feet_world.device) \
+        / per_scenario(params, params.total_mass, 3)
     inertia = params.total_inertia
     if r_mat is not None:
         inertia = r_mat @ inertia @ r_mat.transpose(-1, -2)
@@ -105,8 +109,10 @@ def build_constraints(params: RobotParams, contacts: torch.Tensor,
     """OSQP-form (A [..., 20, 12], l, u): per leg the normal-force bounds and
     the four friction-pyramid rows (>= 0)."""
     dtype, device = surface_normal.dtype, surface_normal.device
-    mu = params.friction_coef
-    weight = params.total_mass * 9.8
+    mu = per_scenario(params, params.friction_coef, 2)
+    weight = per_scenario(params, params.total_mass, 2) * 9.8
+    if params.stacked:
+        surface_normal = surface_normal.expand(mu.shape[:1] + (3,))
     # Orthonormal tangent basis on the surface for any normal.
     x_axis = torch.as_tensor([1.0, 0.0, 0.0], dtype=dtype, device=device)
     t2 = torch.linalg.cross(surface_normal,
@@ -160,8 +166,9 @@ def compute_contact_forces(config: ForceBalanceConfig, params: RobotParams,
     r_mat = obs.rot_body_to_world
     foot_base = kinematics.foot_positions_in_base_frame(params,
                                                         obs.joint_angles)
-    r_feet = torch.einsum("bij,blj->bli", r_mat,
-                          foot_base - params.com_offset)
+    r_feet = torch.einsum(
+        "bij,blj->bli", r_mat,
+        foot_base - per_scenario(params, params.com_offset, 3))
 
     m6 = mass_matrix(params, r_feet, r_mat)
     a_des = desired_acceleration(config, obs, des)
@@ -200,5 +207,6 @@ def stance_torques(params: RobotParams, obs: RobotObservation,
     f_base = torch.einsum("bji,blj->bli", r_mat, forces_world)
     tau = kinematics.map_contact_forces_to_torques(params, obs.joint_angles,
                                                    -f_base)
-    tau = torch.clamp(tau, -params.torque_limit, params.torque_limit)
+    limit = per_scenario(params, params.torque_limit, 2)
+    tau = torch.clamp(tau, -limit, limit)
     return tau * torch.repeat_interleave(contacts, 3, dim=-1)

@@ -5,7 +5,7 @@ law of the mode (the advanced-trot heuristic, or the velocity-mode Raibert
 law for every other mode), the touchdown-wait probe, the optional terrain
 hook `SwingConfig.foothold_adjust_fn`, the swing curve, and IK to joint
 targets. The gait table may be shared by the batch or per scenario, and
-so may the robot (`params.stack_params`) in the advanced-trot law.
+so may the robot (`params.stack_params`) in every foothold law.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.core import se3, splines
 from quadruped_tpu_torch.gait.scheduler import GaitConfig, GaitState, LegState
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 
 
 class SplineType:
@@ -92,7 +92,8 @@ def raibert_foothold_velocity_mode(config: SwingConfig, params: RobotParams,
                                    des: DesiredStateCommand) -> torch.Tensor:
     """[B, 4, 3] velocity-mode foothold targets, base frame: hip velocity *
     stance/2 - Kp (v_target - v) under the hip, at -desired height."""
-    hip = params.default_hip_position + params.com_offset
+    hip = params.default_hip_position \
+        + per_scenario(params, params.com_offset, 3)
     twist = _twisting_vector(hip)
     r_mat = obs.rot_body_to_world
     v_base = torch.einsum("bi,bij->bj", obs.base_vel_world, r_mat)
@@ -104,7 +105,7 @@ def raibert_foothold_velocity_mode(config: SwingConfig, params: RobotParams,
     foothold = (hip_v * gait_config.stance_duration[..., None] * 0.5
                 - kp * (target_v - hip_v))
     foothold = foothold + torch.stack(
-        [hip[:, 0], hip[:, 1], torch.zeros_like(hip[:, 0])], dim=-1)
+        [hip[..., 0], hip[..., 1], torch.zeros_like(hip[..., 0])], dim=-1)
     zero = torch.zeros_like(des.position[:, 2])
     height = torch.stack([zero, zero,
                           des.position[:, 2] - config.foot_clearance], -1)

@@ -12,6 +12,9 @@ a swing spline for the TRUE_SWING leg only. Per tick:
      track the interpolated pose setpoint;
   3. stance, load and unload legs get force-balance torques with ramped
      force bounds; the TRUE_SWING leg follows its swing spline.
+
+The robot is one model or a fleet (`params.stack_params`, one robot per
+scenario).
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ from quadruped_tpu_torch.planner.pose_planner import (PosePlannerState,
                                                       pose_planner_init,
                                                       pose_planner_update)
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import (RobotParams,
-                                               require_one_robot)
+from quadruped_tpu_torch.robots.params import (RobotParams, check_batch,
+                                               rotate_legs)
 
 STANCE_KD = 3.0
 
@@ -75,8 +78,8 @@ def _feet_world(params: RobotParams, obs: RobotObservation) -> torch.Tensor:
 
 def walk_init(config: WalkConfig, params: RobotParams,
               obs: RobotObservation) -> WalkState:
-    require_one_robot(params, "the WALK mode")
     b, device = obs.base_position.shape[0], obs.base_position.device
+    check_batch(params, b)
     feet_world = _feet_world(params, obs)
     return WalkState(
         gait=walk_gait_init(config.gait, b),
@@ -120,8 +123,7 @@ def walk_step(config: WalkConfig, params: RobotParams, state: WalkState,
         stance_time = stance_time[:, None]
     offset_xy = torch.clamp(v_world[:, :2] * stance_time * 0.5,
                             -config.step_length, config.step_length)
-    hip_world = torch.einsum("bij,lj->bli", r, params.default_hip_position) \
-        + base
+    hip_world = rotate_legs(params, r, params.default_hip_position) + base
     target = torch.cat([hip_world[..., :2] + offset_xy[:, None],
                         hip_world[..., 2:]], dim=-1)
     if foothold_adjust_fn is not None:

@@ -14,7 +14,10 @@ Static shapes with masks: all four contacts and foot tasks are always
 present. Swing legs get zeroed contact rows and delta F pinned to 0,
 stance legs zeroed foot-task rows; a zero row has an exactly zero column
 in the damped pseudo-inverse. Every tensor carries the leading scenario
-axis, and the stance/swing choices are per-scenario masks.
+axis, and the stance/swing choices are per-scenario masks. The robot is
+one model or a fleet (`params.stack_params` with the model
+`build_model` gives for it: its own force cap m g and torque limit per
+scenario).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.dynamics import floating_base as fb
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 from quadruped_tpu_torch.solvers import qp
 
 NDOF = fb.NUM_DOF  # 18
@@ -234,9 +237,9 @@ def wbic_torque(config: WbcConfig, params: RobotParams,
     # Inequality rows per leg: the friction pyramid on the total force
     # (stance), or dFr pinned to 0 (swing).
     uf = _uf_rows(config.friction_mu, a_mat)
-    max_fz = params.total_mass * 9.81
-    ineq_vec = torch.cat([a_mat.new_zeros(5), -max_fz.reshape(1).to(
-        a_mat.dtype)])
+    max_fz = (params.total_mass * 9.81).to(a_mat.dtype)    # [] or [B]
+    ineq_vec = torch.cat([a_mat.new_zeros(max_fz.shape + (5,)),
+                          -max_fz[..., None]], dim=-1)    # [6] or [B, 6]
     pin_rows = torch.cat([torch.eye(3, dtype=a_mat.dtype,
                                     device=a_mat.device),
                           a_mat.new_zeros(3, 3)])
@@ -285,5 +288,6 @@ def wbc_step(config: WbcConfig, params: RobotParams,
     delta_q, qdot = multitask_projection(jts, errs, vels, jc_stacked)
     tau_ff, _, _ = wbic_torque(config, params, model, state, cmd,
                                jts, jdqds, accs, jc, jcdqd)
-    tau_ff = torch.clamp(tau_ff, -params.torque_limit, params.torque_limit)
+    limit = per_scenario(params, params.torque_limit, 2)
+    tau_ff = torch.clamp(tau_ff, -limit, limit)
     return state.q + delta_q[:, 6:], qdot[:, 6:], tau_ff

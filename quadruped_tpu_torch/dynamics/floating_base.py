@@ -11,8 +11,10 @@ small products are the JAX module's elementwise broadcast-reduce forms
 Generalized velocity = [omega_body(3); v_body(3); qdot(12)], base
 velocities in the body frame. Joint ji = 3*leg + depth; body = 1 + ji.
 Leg order FR, FL, RR, RL. Batch-first: every state tensor carries the
-leading scenario axis; the model is shared by the batch (no leading axis)
-or given per scenario (a leading [B] axis on each of its tensors).
+leading scenario axis; the model is shared by the batch (no leading axis,
+`build_model` of one robot) or given per scenario (a leading [B] axis on
+each of its tensors, `build_model` of a fleet, `params.stack_params`),
+and a model of B robots takes only states of B scenarios.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.dynamics import spatial as sp
 from quadruped_tpu_torch.robots.params import (SIDE_SIGN, RobotParams,
-                                               require_one_robot)
+                                               index_own)
 
 NUM_BODIES = 13       # trunk + 12 links
 NUM_DOF = 18          # 6 floating + 12 revolute
@@ -62,6 +64,13 @@ class FloatingBaseModel:
     inertias: torch.Tensor      # [13, 6, 6] spatial inertias, link frames
     foot_offset: torch.Tensor   # [4, 3] foot point in knee-link frame
 
+    def check_batch(self, batch) -> None:
+        """Raise ValueError where a model of B robots meets states whose
+        leading axes `batch` are not [B] (they would broadcast)."""
+        if self.xtree_r.ndim == 3 and tuple(batch) != self.xtree_r.shape[:1]:
+            raise ValueError(f"a model of {self.xtree_r.shape[0]} robots "
+                             f"for states of batch {tuple(batch)}")
+
     @property
     def xtree_legs(self) -> torch.Tensor:
         """[..., 4, 3(depth), 3] leg-stacked parent->joint translations."""
@@ -88,36 +97,37 @@ class FbState:
 
 
 def build_model(params: RobotParams) -> FloatingBaseModel:
-    """The 13-body model of the robot in `params`, on params' device."""
-    require_one_robot(params, "the whole-body model (the WBC, the "
-                      "whole-body sim)")
-    dtype, device = params.hip_offset.dtype, params.hip_offset.device
-    zero = torch.zeros((), dtype=dtype, device=device)
-    xtree = [torch.zeros(3, dtype=dtype, device=device)]
-    inertias = [sp.spatial_inertia(params.body_mass,
-                                   torch.zeros(3, dtype=dtype, device=device),
+    """The 13-body model of the robot in `params`, on params' device; for
+    a fleet, each tensor with the leading scenario axis (what `jax.vmap`
+    of the JAX `build_model` gives)."""
+    zero = torch.zeros_like(params.total_mass)         # [] or [B]
+
+    def vec(*xs):
+        return torch.stack(xs, dim=-1)
+
+    xtree = [vec(zero, zero, zero)]
+    inertias = [sp.spatial_inertia(params.body_mass, vec(zero, zero, zero),
                                    params.body_inertia)]
     for leg in range(NUM_LEGS):
         side = SIDE_SIGN[leg]
-        xtree.append(params.hip_offset[leg])
-        xtree.append(torch.stack([zero, params.hip_length * side, zero]))
-        xtree.append(torch.stack([zero, zero, -params.upper_length]))
+        xtree.append(index_own(params, params.hip_offset, leg))
+        xtree.append(vec(zero, params.hip_length * side, zero))
+        xtree.append(vec(zero, zero, -params.upper_length))
         for link in range(CHAIN):
-            m = params.links_mass[link]
-            com = params.links_com_pos[link]
-            i_com = params.links_inertia[link]
+            m = index_own(params, params.links_mass, link)
+            com = index_own(params, params.links_com_pos, link)
+            i_com = index_own(params, params.links_inertia, link)
             if side < 0:
                 m, com, i_com = sp.flip_inertia_along_y(m, com, i_com)
             inertias.append(sp.spatial_inertia(m, com, i_com))
     # Foot contact point on the knee link: a 4 mm lateral offset with the
     # leg's side sign.
     foot_offset = torch.stack([
-        torch.stack([zero, torch.as_tensor(-0.004 * SIDE_SIGN[leg],
-                                           dtype=dtype, device=device),
-                     -params.lower_length])
-        for leg in range(NUM_LEGS)])
-    return FloatingBaseModel(xtree_r=torch.stack(xtree),
-                             inertias=torch.stack(inertias),
+        vec(zero, torch.full_like(zero, -0.004 * SIDE_SIGN[leg]),
+            -params.lower_length)
+        for leg in range(NUM_LEGS)], dim=-2)
+    return FloatingBaseModel(xtree_r=torch.stack(xtree, dim=-2),
+                             inertias=torch.stack(inertias, dim=-3),
                              foot_offset=foot_offset)
 
 
@@ -134,6 +144,7 @@ class _LegKinematics(NamedTuple):
 
 def _joint_xforms(model: FloatingBaseModel, q: torch.Tensor) -> torch.Tensor:
     """[B, 4, 3(depth), 6, 6] X_up per joint."""
+    model.check_batch(q.shape[:-1])
     q_legs = q.reshape(q.shape[:-1] + (NUM_LEGS, CHAIN))
     eye = torch.eye(3, dtype=q.dtype, device=q.device)
     xups = []

@@ -23,6 +23,7 @@ import torch
 from quadruped_tpu_torch.core.filters import (MovingWindowState,
                                               moving_window_init,
                                               moving_window_update)
+from quadruped_tpu_torch.robots.params import index_own, per_scenario
 from quadruped_tpu_torch.utils import card
 
 SIGMA_PHASE = 0.1
@@ -143,10 +144,13 @@ def external_knee_torque(params, tau: torch.Tensor,
     calf's free dynamics about the knee,
     tau_ext = I'_yy ddq_knee + m_calf g l_calf - tau_knee (I'_yy shifted
     to the knee by the parallel-axis theorem). tau, ddq: [..., 12] ->
-    [..., 4]."""
-    m_calf = params.links_mass[2]
+    [..., 4] (for a fleet of stacked parameters, [B, 12] -> [B, 4])."""
+    m_calf = index_own(params, params.links_mass, 2)
     l_calf = params.lower_length
-    iyy = params.links_inertia[2, 1, 1] + m_calf * l_calf * l_calf
+    iyy = index_own(params, params.links_inertia, (2, 1, 1)) \
+        + m_calf * l_calf * l_calf
+    iyy, m_calf, l_calf = (per_scenario(params, v, tau.ndim)
+                           for v in (iyy, m_calf, l_calf))
     return iyy * ddq[..., 2::3] + m_calf * 9.8 * l_calf - tau[..., 2::3]
 
 
@@ -156,7 +160,7 @@ def workspace_clip(params, foot_positions_base: torch.Tensor,
     around (default hip xy, -body_height): one scale per foot by the
     smallest axis ratio. Returns (clipped feet, outside mask [..., 4])."""
     offset = params.default_hip_position.clone()
-    offset[..., 2] = -params.body_height
+    offset[..., 2] = -per_scenario(params, params.body_height, 2)
     p = foot_positions_base - offset
     ratios = allowed / torch.clamp(torch.abs(p), min=1e-9)
     scale = torch.clamp(torch.amin(ratios, dim=-1), max=1.0)

@@ -18,7 +18,8 @@ on a tick where no scenario is in LOCOMOTION before the FSM's transitions
 or after them: the transitions do not depend on the locomotion command,
 so the outputs are the same values (tests/test_torch_runner.py holds
 them equal across the STAND_UP -> LOCOMOTION switch) and the ramp runs no
-MPC solve.
+MPC solve. The robot is one model or a fleet (`params.stack_params`, one
+robot per scenario, with the model `build_model` gives for it).
 """
 
 from __future__ import annotations
@@ -41,8 +42,7 @@ from quadruped_tpu_torch.estimation.container import (EstimatorConfig,
                                                       estimator_init,
                                                       estimator_update)
 from quadruped_tpu_torch.gait.scheduler import stance_contact_mask
-from quadruped_tpu_torch.robots.params import (RobotParams,
-                                               require_one_robot)
+from quadruped_tpu_torch.robots.params import RobotParams, check_batch
 from quadruped_tpu_torch.utils import tree
 
 
@@ -67,9 +67,11 @@ def runner_init(config: RunnerConfig, params: RobotParams,
                 obs: RobotObservation) -> RunnerState:
     """Boot state for the batch of `obs` (on its device): the FSM in
     STAND_UP from the observed joint angles, the locomotion controller
-    (with its MPC cold start) and, with `use_estimators`, the estimators."""
-    require_one_robot(params, "the robot runner")
+    (with its MPC cold start) and, with `use_estimators`, the estimators.
+    Raises ValueError when stacked `params` hold another number of robots
+    than the batch."""
     b, device = obs.base_position.shape[0], obs.base_position.device
+    check_batch(params, b)
     est = (estimator_init(config.estimator, b, params.body_height, device)
            if config.use_estimators else None)
     return RunnerState(

@@ -13,7 +13,8 @@ upcoming support polygon and serve interpolated setpoints along it:
 `pose_planner_update` runs the SQP only on ticks where some scenario
 replans (one host check a tick) and latches the new plan per scenario;
 the JAX module's `lax.cond` becomes a select under `vmap`, which runs the
-SQP every tick with the same result.
+SQP every tick with the same result. The robot is one model or a fleet
+(`params.stack_params`: its own hip offsets and CoM offset per scenario).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import dataclasses
 import torch
 
 from quadruped_tpu_torch.core import se3, splines
-from quadruped_tpu_torch.robots.params import RobotParams
+from quadruped_tpu_torch.robots.params import (RobotParams, per_scenario,
+                                               rotate_legs)
 from quadruped_tpu_torch.solvers import qp as qp_mod
 from quadruped_tpu_torch.utils import card
 
@@ -76,7 +78,8 @@ def plan_target_pose(params: RobotParams, base_position: torch.Tensor,
     n = torch.clamp(torch.sum(support_mask, -1), min=1.0)
     centroid = torch.sum(foot_positions_world * support_mask[..., None],
                          dim=-2) / n[:, None]
-    xy = centroid[:, :2] + params.com_offset[:2]
+    com = per_scenario(params, params.com_offset, 2)
+    xy = centroid[:, :2] + com[..., :2]
     z = centroid[:, 2] + body_height
     return torch.stack([xy[:, 0], xy[:, 1], z, ground_rpy[:, 0],
                         ground_rpy[:, 1], base_rpy[:, 2]], dim=-1)
@@ -160,7 +163,7 @@ def plan_target_pose_sqp(params: RobotParams, base_position: torch.Tensor,
     ground_rpy = ground_rpy.expand_as(base_rpy)
     quat = se3.rpy_to_quat(base_rpy)
     r_if = foot_positions_world[:, CCW_ORDER]                 # [B, 4, 3]
-    r_bh = params.hip_offset[CCW_ORDER].to(dtype)             # [4, 3]
+    r_bh = params.hip_offset[..., CCW_ORDER, :].to(dtype)   # [(B,) 4, 3]
     valid = _drop_concave_vertex(r_if[..., :2], support_mask[:, CCW_ORDER])
     n_c = torch.clamp(torch.sum(valid, -1), min=1.0)
 
@@ -186,7 +189,7 @@ def plan_target_pose_sqp(params: RobotParams, base_position: torch.Tensor,
         r_bf = torch.einsum("bji,blj->bli", r, r_if - r_ib[:, None])
         r_world = torch.einsum("bij,blj->bli", r, r_bf)
         r1 = (r_ib[:, None] + r_world - r_if) * valid[..., None]
-        r_ibh = torch.einsum("bij,lj->bli", r, r_bh)
+        r_ibh = rotate_legs(params, r, r_bh)
         g = r_ib[:, None] + r_ibh - r_if                      # [B, 4, 3]
         g_norm = torch.clamp(_norm(g), min=1e-6)
         g_hat = g / g_norm[..., None]

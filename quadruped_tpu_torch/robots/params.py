@@ -6,12 +6,16 @@ scenario axis, the tensors broadcast against the batch-first state) or a
 heterogeneous fleet, one robot per scenario (`stack_params`, `stack`:
 every field gains a leading scenario axis, [B], [B, 3, 3], [B, 4, 3],
 [B, 12], ...), what `jax.vmap` over the JAX module's stacked pytree gives.
-Consumers read the two forms through one rule, `per_scenario`; the paths
-that take only one robot refuse a fleet through `require_one_robot` where a
-caller starts them (`locomotion_init` for the force-balance modes and the
-WBC, `walk_init`, `build_model`, `whole_body_init`, `runner_init`).
-The factories give the JAX module's values; `tests/test_torch_params.py`
-and `tests/test_torch_scenarios.py` hold them equal field by field.
+Every path of the port takes either form. Consumers read the two forms
+through two rules: `per_scenario` shapes a field to broadcast against a
+batch-first tensor, and `index_own` indexes a per-leg or per-link field
+(`hip_offset[leg]`, `links_mass[link]`) on its own axes (`rotate_legs`
+turns a per-leg field by each scenario's rotation). Where a path
+starts (`srb_sim_init`, `locomotion_init`, `walk_init`,
+`whole_body_init`, `runner_init`) `check_batch` refuses a fleet whose
+scenario axis is not the batch. The factories give the JAX module's
+values; `tests/test_torch_params.py` and `tests/test_torch_scenarios.py`
+hold them equal field by field.
 """
 
 from __future__ import annotations
@@ -92,13 +96,31 @@ def per_scenario(params: RobotParams, value: torch.Tensor,
     return value.reshape(value.shape[:1] + (1,) * pad + value.shape[1:])
 
 
-def require_one_robot(params: RobotParams, what: str) -> None:
-    """Raise on stacked parameters where `what` takes one robot model."""
-    if params.stacked:
-        raise NotImplementedError(
-            f"{what} takes one robot model; stacked parameters (a fleet, "
-            f"stack_params) run only the ADVANCED_TROT convex-MPC loop on "
-            f"the SRB sim (sim.rollout, sim.rollout_cadenced)")
+def index_own(params: RobotParams, value: torch.Tensor, idx) -> torch.Tensor:
+    """`value[idx]` on the field's own axes: a per-leg or per-link field
+    indexed as it stands for one robot (`hip_offset[leg]` [3],
+    `links_inertia[2, 1, 1]` []); for a fleet the same entry of every
+    robot, the scenario axis kept first ([B, 3], [B]). A bare `[leg]`
+    would index the scenario axis of a fleet."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    return value[(slice(None),) + idx] if params.stacked else value[idx]
+
+
+def rotate_legs(params: RobotParams, r: torch.Tensor,
+                legs: torch.Tensor) -> torch.Tensor:
+    """[B, 4, 3]: r [B, 3, 3] applied to each leg's vector of a per-leg
+    field `legs` of `params` ([4, 3] for one robot, [B, 4, 3] for a
+    fleet)."""
+    return torch.einsum("bij,blj->bli" if params.stacked else "bij,lj->bli",
+                        r, legs)
+
+
+def check_batch(params: RobotParams, batch: int) -> None:
+    """Raise ValueError where stacked `params` hold another number of robots
+    than `batch`: the scenario axis of a fleet is the batch."""
+    if params.stacked and params.total_mass.shape[0] != batch:
+        raise ValueError(f"stacked parameters of {params.total_mass.shape[0]}"
+                         f" robots for a batch of {batch} scenarios")
 
 
 def _params(device, *, total_mass, total_inertia_diag, body_mass,

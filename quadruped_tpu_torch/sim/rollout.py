@@ -10,8 +10,8 @@ feed-forward torques, which the SRB sim does not apply (it welds stance
 feet and servoes swing joints), so that the WBC's output can be seen. The
 parameters are one robot or a fleet, one robot per scenario
 (`robots.params.stack_params`, `sim.scenario.scenario_grid`), whose
-scenario axis must be the batch (`rollout_init` raises otherwise); a
-fleet runs the ADVANCED_TROT MPC loop without the WBC.
+scenario axis must be the batch (`rollout_init` raises otherwise), in
+every mode and with the WBC.
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ import torch
 from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.robots import kinematics
-from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
+from quadruped_tpu_torch.robots.params import (RobotParams, check_batch,
+                                               per_scenario)
 
 
 @dataclasses.dataclass
@@ -35,9 +36,7 @@ class SrbSimState:
 
 def srb_sim_init(params: RobotParams, batch: int,
                  body_height=None) -> SrbSimState:
-    if params.stacked and params.total_mass.shape[0] != batch:
-        raise ValueError(f"stacked parameters of {params.total_mass.shape[0]}"
-                         f" robots for a batch of {batch} scenarios")
+    check_batch(params, batch)
     device = params.total_mass.device
     h = params.body_height if body_height is None else body_height
     q0 = params.stand_angles.expand(batch, 12).clone()

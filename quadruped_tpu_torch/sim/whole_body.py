@@ -13,6 +13,9 @@ One sim tick, in `substeps` physics steps:
 
 Batch-first: the state carries the leading scenario axis. Terrain is a
 height function (sim/terrain.py); the default is flat ground at z = 0.
+The robot is one model or a fleet (`params.stack_params` with the model
+`build_model` gives for it: its own stand angles, height and torque
+limit per scenario).
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from quadruped_tpu_torch.control.types import HybridCommand, RobotObservation
 from quadruped_tpu_torch.core import se3
 from quadruped_tpu_torch.dynamics import floating_base as fb
 from quadruped_tpu_torch.dynamics.floating_base import FbState
-from quadruped_tpu_torch.robots.params import (RobotParams,
-                                               require_one_robot)
+from quadruped_tpu_torch.robots.params import (RobotParams, check_batch,
+                                               per_scenario)
 
 
 @dataclasses.dataclass
@@ -67,8 +70,9 @@ def whole_body_init(params: RobotParams, batch: int,
                     body_height=None) -> WholeBodySimState:
     """B robots standing at their stand angles, base at `body_height` (a
     number or a [B] tensor; params.body_height by default), on params'
-    device."""
-    require_one_robot(params, "the whole-body sim")
+    device. Raises ValueError when stacked `params` hold another number of
+    robots than `batch`."""
+    check_batch(params, batch)
     device = params.total_mass.device
     h = params.body_height if body_height is None else body_height
     position = torch.zeros(batch, 3, dtype=torch.float32, device=device)
@@ -133,8 +137,8 @@ def whole_body_step(params: RobotParams, model: fb.FloatingBaseModel,
         dq_cmd = torch.clamp(command.dq, -limit, limit)
         tau_motor = dataclasses.replace(command, dq=dq_cmd).actuator_torque(
             s.q, s.dq)
-        tau_motor = torch.clamp(tau_motor, -params.torque_limit,
-                                params.torque_limit)
+        limit = per_scenario(params, params.torque_limit, 2)
+        tau_motor = torch.clamp(tau_motor, -limit, limit)
         tau_gen = torch.cat([torch.zeros_like(tau_motor[..., :6]),
                              tau_motor], dim=-1)
 

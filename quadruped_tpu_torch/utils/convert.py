@@ -19,7 +19,11 @@ controller states: `LocomotionState` with its optional `transition`,
 `RunnerState` with its `EstimatorState`, `ControlFsmState`, `RcState`,
 `CmuKfState`, `RawSensors`, `RolloutCarry`). A stacked pytree of the
 JAX package (`stack_params`' `RobotParams`, `scenario_grid`'s
-`GaitConfig`) keeps its leading axis too: the port's fleet form. A field
+`GaitConfig`, `jax.vmap(build_model)`'s `FloatingBaseModel`) keeps its
+leading axis too: the port's fleet form; and so does the state of a
+fleet that `jax.vmap` ran over `stack_params` on any path (`WalkState`,
+`WholeBodySimState`, `LocomotionState`, `RunnerState`,
+tests/test_torch_fleet_*.py). A field
 annotated `X | None` recurses into X
 when it holds a value; a JAX NamedTuple (`MovingWindowState`) maps field
 for field onto the port's dataclass of that name. Leaves land on the card
