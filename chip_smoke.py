@@ -195,6 +195,40 @@ that path's batch and configuration:
      with one-robot parameters, on heights and joint angles at phase 22's
      limits on the SRB sim and at the whole-body loop's CPU limits on the
      whole-body sim (FLEET_CHECK_TOL), K1 once per solve.
+Phases 36-39 run the host bridge, the hil tick and distributed/:
+ 36. `bridge`: native/robot_bridge.cpp built with g++ into
+     quadruped_tpu_torch/_build/ (its seconds; native/libqtpu_bridge.so
+     left as it was), then one loopback round trip through `RobotBridge`
+     per wire mode (native, unitree, deeprobotics): the decoded joint
+     angles of a packet written at the spec offsets, and the command's
+     torques clipped to 23 N m on the wire;
+ 37. `hil:B1` and `hil:B16` (benchmarks/hil_latency.py, the twin of the
+     JAX benchmarks/hil_latency.py): the feeder -> bridge ->
+     `locomotion_step` (H=10, 24 iterations, 120-iteration boot) -> send
+     loop, 300 ticks at the cadence (solve and hold ticks apart) and 300
+     with `solve_mode="always"`: p50, p99 and max in ms, CUDA kernels on a
+     solve tick and a hold tick, K1 once per solve tick and never on a hold
+     tick, every command finite and every sink served every tick;
+     `within_2ms_tick_budget` and `within_15ms_cadence_budget` printed, not
+     asserted; K1 at B=1 and B=16 against its plain version and timed;
+ 38. `distributed:dryrun`: `entry.dryrun_multichip(1)` on a one-rank NCCL
+     group at `MpcConfig()` (K1 twice: the boot and the step's solve), its
+     forces bit for bit the same step with no mesh, K1 at its two shapes
+     timed; then the twin of the JAX
+     test_sharded_closed_loop_rollout_matches_unsharded: B=16, 125 ticks,
+     `shard_batch` over the mesh, bit for bit the unsharded rollout, K1
+     1 + 16 times;
+ 39. `distributed:sp`: `solve_cone_sp` at sp = 1 against `cone_qp.solve`
+     on 8 bench problems at the JAX test_solver_sp quality bound, and one
+     `scaling_report` reading at one rank (B=1024) through
+     `sharded_solve_stats`.
+The check phases print no time: 4, 9, the cross-simulator check of 11,
+the fixtures of 12, the walk windows of 15, 19, 22-24 and the per-path
+B=64 fleets of 35. They run after phase 35 and before phase 36, split
+over CHECK_PROCESSES processes on the card at once (this one and workers
+started as `chip_smoke.py --checks NAME,...`; the line `checks` names the
+groups), so their lines come in that order; the phases that print a time
+run alone.
 Every phase line ends with its wall time since the previous line. The last
 two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
@@ -366,6 +400,20 @@ FLEET_CHECK_TOL = {
             "q": FLEET_SINGLE_TOL["q"]},
     "whole_body": {"height": 5e-4, "q": 4e-2}}
 WB_FLEET_BATCH = 1024
+# The check phases (`check_block`): processes on the card at once (the
+# checks are launch-bound and leave the card idle most of the time), a
+# worker's limit, and each check's seconds in a serial run of the script
+# (NVIDIA H100 80GB HBM3, 700 W), which balance the split.
+CHECK_PROCESSES, CHECK_TIMEOUT_S = 3, 600
+CHECK_SECONDS = {
+    "fixture": 0.9, "fixture:velocity": 53.1, "fixture:position": 37.7,
+    "whole_body:cross_srb": 66.2, "fixture:wbc": 11.1,
+    "fixture:whole_body": 10.2, "fixture:walk": 39.0,
+    "fixture:runner": 21.5, "fleet:vs_single": 19.0, "fixture:fleet": 7.2,
+    "fleet:velocity:vs_single": 14.0, "fleet:position:vs_single": 15.7,
+    "fleet:walk:vs_single": 22.1, "fleet:wbc:vs_single": 3.2,
+    "fleet:wholebody:vs_single": 4.0, "fleet:runner:vs_single": 3.9,
+    "fleet:runner_trot:vs_single": 4.8}
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -440,6 +488,879 @@ def phase(name: str, **values):
           flush=True)
 
 
+# 36-39. The host bridge, the hil tick at B=1 and B=16, distributed/ on a
+# one-rank NCCL group.
+HIL_FLEETS = (1, 16)
+# Ticks of the cadence run and of the solve_mode="always" run (the JAX
+# script's default).
+HIL_TICKS = {"cadence": 300, "always": 300}
+DRY_TICKS, DRY_BATCH = 125, 16
+SP_BATCH, SCALING_BATCH = 8, 1024
+
+
+def _free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _crc32_unitree(data: bytes) -> int:
+    """Unitree CRC-32 (poly 0x04c11db7, init 0xFFFFFFFF, word-wise, no
+    reflection) over every 32-bit word but the trailing CRC word."""
+    import struct
+
+    crc = 0xFFFFFFFF
+    for i in range((len(data) >> 2) - 1):
+        (word,) = struct.unpack_from("<I", data, 4 * i)
+        for bit in range(31, -1, -1):
+            crc = ((crc << 1) & 0xFFFFFFFF) ^ (0x04C11DB7 if crc & 0x80000000
+                                               else 0)
+            if word >> bit & 1:
+                crc ^= 0x04C11DB7
+    return crc
+
+
+def wire_state_packet(mode: str) -> bytes:
+    """A state packet of each wire protocol, written at the spec offsets
+    (nothing shared with the C++ codec): joint j at 0.3 + 0.01 j in
+    `native` and `unitree`, wire joint w at 1.0 + 0.01 w in
+    `deeprobotics`."""
+    import struct
+
+    if mode == "native":
+        vals = np.zeros(51, np.float32)
+        vals[0], vals[1] = 5.0, 1.0
+        vals[11:23] = 0.3 + 0.01 * np.arange(12)
+        vals[47:51] = 30.0
+        return vals.tobytes()
+    if mode == "unitree":
+        buf = bytearray(891)
+        buf[0] = 0xFF
+        struct.pack_into("<4f", buf, 10, 1.0, 0.0, 0.0, 0.0)
+        for j in range(20):
+            buf[63 + 38 * j] = 0x0A
+            struct.pack_into("<f", buf, 63 + 38 * j + 1, 0.3 + 0.01 * j)
+        struct.pack_into("<4h", buf, 823, 10, 20, 30, 40)
+        struct.pack_into("<I", buf, 839, 123456)
+        struct.pack_into("<I", buf, 887, _crc32_unitree(bytes(buf)))
+        return bytes(buf)
+    payload = bytearray(336)
+    struct.pack_into("<I", payload, 0, 2500)
+    for w in range(12):
+        struct.pack_into("<4f", payload, 44 + 16 * w, 1.0 + 0.01 * w, 0.0,
+                         0.0, 35.0)
+    return struct.pack("<III", 0x0906, 336, 1 | (7 << 8)) + bytes(payload)
+
+
+def wire_round_trip(mode: str) -> dict:
+    """One loopback round trip through the port's RobotBridge in `mode`:
+    the decoded joint angles against the packet's, and the command's
+    torques (50 N m asked) clipped to the 23 N m limit on the wire."""
+    import socket
+    import struct
+
+    from quadruped_tpu_torch.runtime import RobotBridge
+
+    mcu = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    mcu.bind(("127.0.0.1", 0))
+    mcu.settimeout(2.0)
+    state_port = _free_udp_port()
+    bridge = RobotBridge(recv_port=state_port,
+                         send_port=mcu.getsockname()[1], torque_limit=23.0,
+                         wire_mode=mode)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        pkt = wire_state_packet(mode)
+        deadline, n = time.time() + 2.0, 0
+        while n == 0 and time.time() < deadline:
+            tx.sendto(pkt, ("127.0.0.1", state_port))
+            time.sleep(0.01)
+            n, state = bridge.get_state()
+        if n == 0:
+            raise RuntimeError(f"bridge:{mode}: no state decoded")
+        j = np.arange(12)
+        wire = j + 3 - 6 * ((j // 3) % 2)      # FR<->FL, RR<->RL swaps
+        want_q = (1.0 + 0.01 * wire if mode == "deeprobotics"
+                  else 0.3 + 0.01 * j)
+        dq_state = float(np.abs(state["q"] - want_q).max())
+        q = 0.1 * j
+        if not bridge.send_command(q, np.full(12, 60.0), np.zeros(12),
+                                   np.full(12, 5.0), np.full(12, 50.0)):
+            raise RuntimeError(f"bridge:{mode}: send failed")
+        data, _ = mcu.recvfrom(4096)
+        if mode == "native":
+            cmd = np.frombuffer(data, np.float32)
+            q_sent, tau = cmd[:12], cmd[48:60]
+        elif mode == "unitree":
+            if struct.unpack_from("<I", data, 726)[0] != _crc32_unitree(data):
+                raise RuntimeError("bridge:unitree: LowCmd CRC")
+            rows = [struct.unpack_from("<5f", data, 11 + 33 * k)
+                    for k in range(12)]
+            q_sent = np.array([r[0] for r in rows])
+            tau = np.array([r[2] for r in rows])
+        else:
+            rows = [struct.unpack_from("<5f", data, 12 + 20 * int(w))
+                    for w in wire]
+            q_sent = np.array([r[0] for r in rows])
+            tau = np.array([r[2] for r in rows])
+        out = dict(bytes_in=len(pkt), bytes_out=len(data),
+                   max_abs_dq_state=dq_state,
+                   max_abs_dq_command=float(np.abs(q_sent - q).max()),
+                   tau_on_wire=json.dumps(sorted(set(np.round(tau, 4)
+                                                     .tolist()))))
+        if not (dq_state < 1e-5 and out["max_abs_dq_command"] < 1e-6
+                and np.all(tau == np.float32(23.0))):
+            raise RuntimeError(f"bridge:{mode}: round trip {out}")
+        return out
+    finally:
+        bridge.close()
+        mcu.close()
+        tx.close()
+
+
+def capture_k1(fn) -> list:
+    """(K1 operands, kwargs) of every cone_qp.solve that fn() runs, as the
+    solve hands them to the kernel."""
+    from quadruped_tpu_torch.solvers import cone_qp
+
+    got = []
+    solve = cone_qp.solve
+    cone_qp.solve = lambda prob, **kw: got.append((prob, kw)) or \
+        solve(prob, **kw)
+    try:
+        fn()
+    finally:
+        cone_qp.solve = solve
+    out = []
+    for prob, kw in got:
+        inp = cone_qp.admm_inputs(prob, rho=kw.get("rho", cone_qp.RHO_CONE),
+                                  x0=kw.get("x0"), y0=kw.get("y0"))
+        args = tuple(inp[:8])
+        out.append((args, dict(iters=kw["iters"], sigma=cone_qp.SIGMA,
+                               alpha=kw.get("alpha", cone_qp.ALPHA),
+                               accel_restart=kw.get("accel_restart", 0))))
+    return out
+
+
+def kernel_device_ms(fn, reps: int = 50) -> float:
+    """Device time in ms of one call of fn() among `reps` back to back,
+    with the host's work taken out: a sleep kernel holds the stream while
+    the host enqueues every call, so the events time the kernels alone
+    (the time of a kernel whose call costs the host more than the kernel
+    takes, as at a batch of a few problems)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)        # ~25 ms of SM clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k1_reading(where: str, args, kw) -> dict:
+    """K1 against its plain version on these operands (KERNEL_ATOL /
+    KERNEL_RTOL); its device time (`kernel_device_ms`) and its time a call
+    back to back (CUDA events, the wrapper's host work included), the
+    plain version's and its bound."""
+    from quadruped_tpu_torch.solvers import fused_admm
+    from quadruped_tpu_torch.utils import card
+
+    xk, yk = fused_admm.fused_admm(*args, **kw)
+    xr, yr = fused_admm.fused_admm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(xk).all() and torch.isfinite(yk).all()):
+        raise RuntimeError(f"fused_admm output not finite ({where})")
+    torch.testing.assert_close(xk, xr, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    torch.testing.assert_close(yk, yr, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    batch, n = args[1].shape
+    ms = kernel_device_ms(lambda: fused_admm.fused_admm(*args, **kw))
+    per_call = card.time_ms(lambda: fused_admm.fused_admm(*args, **kw), 50)
+    plain_ms = card.time_ms(
+        lambda: fused_admm.fused_admm_reference(*args, **kw), 3)
+    b_ms, b_by = bound(*admm_work(batch, n, kw["iters"]))
+    return dict(batch=batch, n=n, iters=kw["iters"],
+                max_abs_err=max((xk - xr).abs().max().item(),
+                                (yk - yr).abs().max().item()),
+                ms=ms, ms_per_call=per_call, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms)
+
+
+def phases_bridge_hil_distributed(dev, smi: str) -> dict:
+    """Phases 36-39; returns the K1 readings of the kernels line."""
+    import torch.distributed as dist
+
+    from quadruped_tpu_torch import entry
+    from quadruped_tpu_torch.benchmarks import hil_latency as hil
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.distributed import (make_mesh, shard_batch,
+                                                 solve_cone_sp)
+    from quadruped_tpu_torch.distributed.scaling import (scaling_report,
+                                                         sharded_solve_stats)
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.robots import a1_params
+    from quadruped_tpu_torch.sim.rollout import rollout
+    from quadruped_tpu_torch.solvers import cone_qp, fused_admm, problems
+    from quadruped_tpu_torch.utils import host_build
+
+    k1 = fused_admm.fused_admm
+    out = {}
+
+    # 36. The host library from native/robot_bridge.cpp, into _build/,
+    # and one loopback round trip per wire mode.
+    jax_so = ROOT / "native" / "libqtpu_bridge.so"
+    before = jax_so.stat().st_mtime_ns if jax_so.exists() else None
+    path, _, gxx_s = host_build.build_host_library(force=True)
+    after = jax_so.stat().st_mtime_ns if jax_so.exists() else None
+    if after != before or path.parent != ROOT / "quadruped_tpu_torch" / \
+            "_build":
+        raise RuntimeError("bridge: the build wrote outside _build/")
+    trips = {mode: wire_round_trip(mode)
+             for mode in ("native", "unitree", "deeprobotics")}
+    phase("bridge", library=path.relative_to(ROOT), gxx_seconds=gxx_s,
+          jax_library_untouched=True,
+          round_trips=json.dumps(trips, sort_keys=True))
+
+    # 37. The hil tick at fleets of 1 and 16: the cadence (solve and hold
+    # ticks apart) and solve_mode="always".
+    for n in HIL_FLEETS:
+        line = {}
+        for mode in hil.MODES:
+            with hil.HilRig(n, dev, solve_mode=mode) as rig:
+                rig.run(0, warmup=3)
+                k1.launches = 0
+                res = rig.run(HIL_TICKS[mode], warmup=0, record=True)
+                launches = k1.launches
+                if not (res["received"] == 1).all():
+                    raise RuntimeError(f"hil:B{n} {mode}: a sink missed a "
+                                       f"command")
+                if not np.isfinite(res["commands"]).all():
+                    raise RuntimeError(f"hil:B{n} {mode}: a command is not "
+                                       f"finite")
+                if launches != int(res["solve"].sum()) or \
+                        not (res["k1"] == res["solve"]).all():
+                    raise RuntimeError(f"hil:B{n} {mode}: K1 launches "
+                                       f"{launches}, solve ticks "
+                                       f"{int(res['solve'].sum())}")
+                line[mode] = dict(hil.summarize(res), k1_launches=launches)
+                if mode == "cadence":
+                    # Kernels on a solve tick (the first of a run) and over
+                    # one MPC cycle of 8; the "always" run's ticks are
+                    # solve ticks.
+                    solve_ms = line[mode]["solve_ticks"]["p50_ms"]
+                    prof = device_profile(lambda: rig.run(1, warmup=0), 1,
+                                          solve_ms)
+                    cycle = device_profile(
+                        lambda: rig.run(8, warmup=0), 8,
+                        line[mode]["all_ticks"]["mean_ms"])
+                    solve_k = prof["kernels_per_tick"]
+                    line[mode].update(
+                        kernels_solve_tick=solve_k,
+                        kernels_hold_tick=(
+                            "not measured" if isinstance(solve_k, str) else
+                            (8 * cycle["kernels_per_tick"] - solve_k) / 7),
+                        device_busy_share_solve_tick=prof[
+                            "device_busy_share"])
+                    line["k1"] = k1_reading(f"hil:B{n}", *capture_k1(
+                        lambda: rig.run(1, warmup=0))[-1])
+                    tag = f"hil_b{n}"
+                    out.update({f"launches_{tag}": launches,
+                                **{f"{k}_{tag}": line["k1"][k] for k in
+                                   ("ms", "ms_per_call", "plain_ms",
+                                    "bound_ms", "max_abs_err")}})
+        phase(f"hil:B{n}", ticks=json.dumps(HIL_TICKS),
+              cadence=json.dumps(line["cadence"]),
+              always=json.dumps(line["always"]),
+              k1=json.dumps(line["k1"]), card=json.dumps(smi))
+
+    # 38. dryrun_multichip(1) on a one-rank NCCL group against the same
+    # step with no mesh; the B=16 sharded closed loop against the same
+    # batch unsharded.
+    k1.launches = 0
+    dry = entry.dryrun_multichip(1)
+    dry_launches = k1.launches
+    if dry_launches != 2 or dist.get_backend() != "nccl":
+        raise RuntimeError(f"distributed:dryrun: K1 launches {dry_launches} "
+                           f"(expected 2), backend {dist.get_backend()}")
+    cfg = entry.dryrun_config(dev)
+    built = {}
+
+    def plain_step():
+        built["v"] = entry.dryrun_build(cfg, 2, slice(0, 2), dev)
+        built["f"] = entry.dryrun_step(cfg, *built["v"])[2]
+
+    dry_ops = capture_k1(plain_step)
+    if not torch.equal(dry.forces, built["f"]):
+        raise RuntimeError("distributed:dryrun: forces differ from the step "
+                           "with no mesh")
+    dry_boot = k1_reading("dryrun boot", *dry_ops[0])
+    dry_warm = k1_reading("dryrun warm", *dry_ops[1])
+    config = LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=10, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev))
+    params = a1_params(dev)
+    rng = np.random.default_rng(7)
+    cmds = TwistCommand.constant(
+        vx=rng.uniform(0.1, 0.5, DRY_BATCH).astype(np.float32), device=dev)
+    mesh = make_mesh(1)
+    k1.launches = 0
+    t0 = time.perf_counter()
+    got = rollout(config, params, shard_batch(mesh, cmds), DRY_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    roll_launches = k1.launches
+    want = rollout(config, params, cmds, DRY_TICKS)
+    expected = 1 + -(-DRY_TICKS // config.mpc.ticks_per_solve)
+    equal = all(torch.equal(a, b) for a, b in (
+        (got.alive, want.alive), (got.sim.position, want.sim.position),
+        (got.forces_trace, want.forces_trace)))
+    phase("distributed:dryrun", world_size=dist.get_world_size(),
+          backend=dist.get_backend(), batch=2, stat=dry.stat.item(),
+          kernel_launches=dry_launches, forces_equal_no_mesh=True,
+          k1_boot=json.dumps(dry_boot), k1_warm=json.dumps(dry_warm),
+          rollout_batch=DRY_BATCH, rollout_ticks=DRY_TICKS,
+          rollout_kernel_launches=roll_launches,
+          rollout_expected_launches=expected,
+          rollout_bitwise_equal_unsharded=equal,
+          rollout_alive=got.alive.mean().item(), rollout_wall_s=wall,
+          card=json.dumps(smi))
+    if not equal or roll_launches != expected or got.alive.min() < 1.0:
+        raise RuntimeError("distributed:dryrun: sharded rollout differs, or "
+                           "K1 launched otherwise, or a robot fell")
+    out.update(launches_dryrun=dry_launches, ms_dryrun=dry_warm["ms"],
+               ms_per_call_dryrun=dry_warm["ms_per_call"],
+               plain_ms_dryrun=dry_warm["plain_ms"],
+               bound_ms_dryrun=dry_warm["bound_ms"],
+               ms_dryrun_boot=dry_boot["ms"],
+               bound_ms_dryrun_boot=dry_boot["bound_ms"],
+               max_abs_err_dryrun=max(dry_warm["max_abs_err"],
+                                      dry_boot["max_abs_err"]),
+               launches_sharded_rollout=roll_launches)
+
+    # 39. solve_cone_sp at sp = 1 against cone_qp.solve, at the JAX
+    # test's quality bound; one scaling_report reading at one rank.
+    prob, _ = problems.bench_problems(SP_BATCH, 10, device=dev)
+    conv = cone_qp.solve(prob, iters=2000)
+    ref = cone_qp.solve(prob, iters=24, alpha=1.0, accel_restart=20)
+    got_sp = solve_cone_sp(mesh, prob, iters=24)
+    err_ref = (ref.x - conv.x).abs().max().item()
+    err_got = (got_sp.x - conv.x).abs().max().item()
+    gap = (got_sp.x - ref.x).abs().max().item()
+
+    def build(batch, m):
+        p, _ = problems.bench_problems(batch, 10, device=dev)
+        boot = cone_qp.solve(p, iters=400, alpha=1.6)
+
+        def solve(pp):
+            return cone_qp.solve(pp, iters=24, alpha=1.0, accel_restart=20,
+                                 x0=boot.x, y0=boot.y).x[:, :12].reshape(
+                                     -1, 4, 3)
+
+        return sharded_solve_stats(m, solve), (shard_batch(m, p),)
+
+    report = scaling_report(build, SCALING_BATCH, 1, reps=20)
+    phase("distributed:sp", sp=1, batch=SP_BATCH, err_vs_converged=err_got,
+          err_solve_vs_converged=err_ref, max_abs_vs_solve=gap,
+          bound="err < 1.2 err_solve + 0.5, gap < 2.0",
+          scaling=json.dumps(report), scaling_batch=SCALING_BATCH,
+          card=json.dumps(smi))
+    if not (err_got < 1.2 * err_ref + 0.5 and gap < 2.0):
+        raise RuntimeError("distributed:sp: solve_cone_sp off the bound")
+    dist.destroy_process_group()
+    return out
+
+
+
+def hold(name: str, got: dict, want: dict, tol: dict, **extra):
+    """max |got - want| per key of `tol`, printed beside its limit on the
+    line `name`; raises if any is over its limit."""
+    errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in tol}
+    phase(name, **extra,
+          **{k: f"{e:.3g}/{tol[k]:g}" for k, e in errs.items()})
+    bad = {k: e for k, e in errs.items() if not e <= tol[k]}
+    if bad:
+        raise RuntimeError(f"{name} mismatch: {bad}")
+
+
+def kernel_wrappers() -> dict:
+    """The wrapper of each kernel of the port, by name; each counts its
+    launches in `.launches`."""
+    from quadruped_tpu_torch.benchmarks import mxu_rate
+    from quadruped_tpu_torch.solvers import fused_admm, fused_full_solve
+
+    return {"fused_admm": fused_admm.fused_admm,
+            "fused_full_solve": fused_full_solve.fused_full_solve,
+            "unrolled_dots": mxu_rate.unrolled_dots}
+
+
+def reset_counts():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def counts_after(path: str, kernel: str, expected=None) -> int:
+    """The launch counts of the run of `path` since reset_counts(): only
+    `kernel` launched, `expected` times (at least once if None)."""
+    counts = {name: w.launches for name, w in kernel_wrappers().items()}
+    n = counts[kernel]
+    others = sum(counts.values()) - n
+    if others or n == 0 or (expected is not None and n != expected):
+        raise RuntimeError(f"{path}: kernel launches {counts}, expected "
+                           f"{expected or 'some'} of {kernel} only")
+    return n
+
+
+def path_launches(name: str, expected: int) -> int:
+    """The kernel launches since reset_counts(): K1 `expected` times (the
+    boot's cold start and one a batched MPC solve), or none where the path
+    solves no MPC."""
+    if expected:
+        return counts_after(name, "fused_admm", expected)
+    counts = {k: w.launches for k, w in kernel_wrappers().items()}
+    if any(counts.values()):
+        raise RuntimeError(f"{name} launched kernels: {counts}")
+    return 0
+
+
+def mode_config(mode, dev):
+    """The force-balance configuration of VELOCITY or POSITION mode
+    (phases 8 and 9)."""
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.control.stance_force_balance import \
+        ForceBalanceConfig
+    from quadruped_tpu_torch.gait import TROT
+
+    return LocomotionConfig(mpc=mpc_mod.MpcConfig(),
+                            swing=swing_mod.SwingConfig(mode=mode),
+                            gait=TROT(dev), mode=mode,
+                            force_balance=ForceBalanceConfig())
+
+
+# The check phases: the card against the JAX package's fixtures, the
+# cross-simulator check, and each fleet against its robots run alone. They
+# print no time, so they run together after phase 35, split over
+# CHECK_PROCESSES processes on the card at once: this one, and workers
+# started as `chip_smoke.py --checks NAME,...`. Each check is one function
+# of the device; CHECK_SECONDS (their seconds in a serial run on the card,
+# NVIDIA H100 80GB HBM3 at 700 W) balances the split.
+
+
+def check_fixture(dev):
+    """4. The JAX fixture, on the card."""
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.robots import a1_params
+    from quadruped_tpu_torch.sim.rollout_cadenced import rollout_cadenced
+
+    params = a1_params(dev)
+    config = LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=10),
+                              swing=swing_mod.SwingConfig(),
+                              gait=ADVANCED_TROT(dev))
+    want = dict(np.load(FIXTURE))
+    fres = rollout_cadenced(config, params, TwistCommand.constant(
+        vx=want["vx"], device=dev), int(want["base_height_trace"].shape[1]))
+    got = {k: getattr(fres.sim, k).cpu().numpy() for k in FIXTURE_TOL
+           if hasattr(fres.sim, k)}
+    got["base_height_trace"] = fres.base_height_trace.cpu().numpy()
+    got["vel_trace"] = fres.vel_trace.cpu().numpy()
+    if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
+        raise RuntimeError("fixture: alive mask differs")
+    hold("fixture", got, want, FIXTURE_TOL)
+
+
+
+def check_modes_fixture(dev, which: str):
+    """9. The JAX modes fixture of VELOCITY or POSITION mode, on the
+    card."""
+    from quadruped_tpu_torch.control.desired_state import (ControlMode,
+                                                           TwistCommand)
+    from quadruped_tpu_torch.robots import a1_params
+    from quadruped_tpu_torch.sim import rollout as rollout_mod
+
+    params = a1_params(dev)
+    mode = {"velocity": ControlMode.VELOCITY,
+            "position": ControlMode.POSITION}[which]
+    data = np.load(MODES_FIXTURE)
+    want = {k[len(which) + 1:]: data[k] for k in data.files
+            if k.startswith(which + "_")}
+    ticks, step = int(want["ticks"]), int(data["trace_stride"])
+    fres = rollout_mod.rollout(mode_config(mode, dev), params,
+                               TwistCommand.constant(
+                                   vx=want["vx"], body_height=0.27,
+                                   device=dev), ticks)
+    got = {k: getattr(fres.sim, k).cpu().numpy() for k in FIXTURE_TOL
+           if hasattr(fres.sim, k)}
+    got["base_height_trace"] = \
+        fres.base_height_trace[:, step - 1::step].cpu().numpy()
+    got["vel_trace"] = fres.vel_trace[:, step - 1::step].cpu().numpy()
+    if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
+        raise RuntimeError(f"fixture {which}: alive mask differs")
+    hold(f"fixture:{which}", got, want, MODES_FIXTURE_TOL, ticks=ticks)
+
+
+def check_cross_srb(dev):
+    """11. The whole-body loop against the SRB rollout at B=64 over 600
+    ticks (the last 200 ticks' mean height and vx)."""
+    from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.robots import a1_params
+    from quadruped_tpu_torch.sim import rollout as rollout_mod
+
+    params = a1_params(dev)
+    cross_config = LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev))
+    srb = rollout_mod.rollout(cross_config, params, TwistCommand.constant(
+        vx=0.25, body_height=0.27, batch=CROSS_BATCH, device=dev),
+        CROSS_TICKS)
+    loop = bench_wb.build(CROSS_BATCH, dev, cross_config,
+                          np.full(CROSS_BATCH, 0.25))
+    _, (h_wb, vx_wb) = bench_wb.run(loop, CROSS_TICKS)
+    win = slice(400, CROSS_TICKS)
+    dh = (h_wb[:, win].mean(1)
+          - srb.base_height_trace[:, win].mean(1)).abs().max().item()
+    dvx = (vx_wb[:, win].mean(1)
+           - srb.vel_trace[:, win, 0].mean(1)).abs().max().item()
+    phase(f"whole_body:cross_srb:B{CROSS_BATCH}", ticks=CROSS_TICKS,
+          srb_alive=srb.alive.mean().item(),
+          mean_height_wb=h_wb[:, win].mean().item(),
+          mean_height_srb=srb.base_height_trace[:, win].mean().item(),
+          max_abs_dheight=dh, max_abs_dvx=dvx, tol="0.03 m / 0.15 m/s")
+    if not (torch.isfinite(h_wb).all() and srb.alive.min().item() == 1.0
+            and dh < 0.03 and dvx < 0.15):
+        raise RuntimeError(f"cross-simulator check: height {dh}, vx {dvx}")
+
+
+
+def check_wbc_fixture(dev):
+    """12. The JAX fixture of the WBC rollout and of one WBC tick."""
+    from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control import wbc as wbc_mod
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.robots import a1_params
+    from quadruped_tpu_torch.sim import rollout as rollout_mod
+
+    params = a1_params(dev)
+    data = dict(np.load(WBC_FIXTURE))
+    fres = rollout_mod.rollout(LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=40),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev),
+        wbc=wbc_mod.WbcConfig(), use_wbc=True), params,
+        TwistCommand.constant(vx=data["vx"], body_height=0.27, device=dev),
+        int(data["ticks"]))
+    stride = int(data["trace_stride"])
+    got = {k: getattr(fres.sim, k).cpu().numpy() for k in WBC_FIXTURE_TOL
+           if hasattr(fres.sim, k)}
+    for k in ("base_height_trace", "vel_trace"):
+        got[k] = getattr(fres, k)[:, stride - 1::stride].cpu().numpy()
+    got["forces_trace"] = fres.forces_trace.cpu().numpy()
+    got["tau_trace"] = fres.tau_trace.cpu().numpy()
+    if not np.array_equal(fres.alive.cpu().numpy(), data["alive"]):
+        raise RuntimeError("fixture wbc_rollout: alive mask differs")
+    hold("fixture:wbc_rollout", got, data, WBC_FIXTURE_TOL,
+         ticks=int(data["ticks"]))
+
+    step, wbc_args = bench_wbc.build(8, dev)
+    outs = {k: o.cpu().numpy() for k, o in
+            zip(("q_des", "dq_des", "tau"), step(*wbc_args))}
+    hold("fixture:wbc_tick", outs,
+         {k: data[f"wbc_tick_{k}"] for k in WBC_TICK_TOL}, WBC_TICK_TOL,
+         batch=8)
+
+
+def check_whole_body_fixture(dev):
+    """12. The JAX fixture of the whole-body loop."""
+    from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+
+    data = dict(np.load(WB_FIXTURE))
+    loop = bench_wb.build(len(data["vx"]), dev, LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev)), data["vx"])
+    loop, (h_wb, vx_wb) = bench_wb.run(loop, int(data["ticks"]))
+    got = {k: getattr(loop.sim.fb, k).cpu().numpy() for k in WB_FIXTURE_TOL
+           if hasattr(loop.sim.fb, k)}
+    got["height_trace"] = h_wb.cpu().numpy()
+    got["vx_trace"] = vx_wb.cpu().numpy()
+    hold("fixture:whole_body", got, data, WB_FIXTURE_TOL,
+         ticks=int(data["ticks"]))
+
+
+def check_walk_windows(dev):
+    """15. The walk fixture's windows: the first WALK_WINDOW_TICKS ticks
+    of each."""
+    from quadruped_tpu_torch.benchmarks import walk as bench_walk
+
+    data = np.load(WALK_FIXTURE)
+    loops, rows = bench_walk.window_loops(data, dev)
+    port = {}
+    for sim_kind, wloop in loops.items():
+        _, wtr = bench_walk.run(wloop, WALK_WINDOW_TICKS, record=True)
+        for key, _, kind, _ in bench_walk.checkpoints():
+            if kind == sim_kind:
+                port[key] = {k: v[rows[key]].cpu().numpy()
+                             for k, v in wtr.items()}
+    for key, errs in bench_walk.window_errors(data, port).items():
+        missed = errs.pop("missed")
+        phase(f"fixture:walk_{key}", ticks=WALK_WINDOW_TICKS,
+              sub_states="equal", missed_port_jax=f"{missed[0]}/{missed[1]}",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+        if bad:
+            raise RuntimeError(f"fixture walk {key} mismatch: {bad}")
+
+
+def check_runner_windows(dev):
+    """19. The runner fixture's windows, on the card."""
+    from quadruped_tpu_torch.benchmarks import runner as bench_runner
+
+    runner_data = np.load(bench_runner.FIXTURE)
+    loop, rows, noise = bench_runner.window_loop(runner_data, device=dev)
+    _, tr = bench_runner.run(
+        loop, max(w for _, w in bench_runner.CHECKPOINTS.values()),
+        noise=noise, record=True)
+    for key, errs in bench_runner.window_errors(runner_data, tr,
+                                                rows).items():
+        phase(f"fixture:runner_{key}",
+              ticks=bench_runner.CHECKPOINTS[key][1],
+              fsm_and_contact="equal",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+        if bad:
+            raise RuntimeError(f"fixture runner {key} mismatch: {bad}")
+
+
+def check_fleet_vs_single(dev):
+    """22. Each robot of a B=64 fleet against the same robot run alone with
+    one-robot parameters; 23. the checkpointed rollout of that fleet."""
+    from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.gait import named_gait
+    from quadruped_tpu_torch.robots import named_params
+    from quadruped_tpu_torch.sim import rollout as rollout_mod
+    from quadruped_tpu_torch.utils import checkpoint, tree
+    from quadruped_tpu_torch.utils.trace import (compare_traces, load_trace,
+                                                 save_trace)
+
+    vs = bench_fleet.build(FLEET_SINGLE_BATCH // FLEET_GRID, dev)
+    vres = bench_fleet.run(vs, FLEET_SINGLE_TICKS)
+    errs = dict.fromkeys(FLEET_SINGLE_TOL, 0.0)
+    for r in bench_fleet.ROBOTS:
+        rows = torch.tensor([x == r for x in vs.robots], device=dev)
+        vx = vs.cmd.linear[rows, 0]
+        alone = rollout_mod.rollout(
+            bench_fleet.config(named_gait(bench_fleet.GAITS[0], dev)),
+            named_params(r, dev),
+            TwistCommand.constant(vx=vx, device=dev), FLEET_SINGLE_TICKS)
+        for k in FLEET_SINGLE_TOL:
+            a = getattr(alone, k) if k != "q" else alone.sim.q
+            b = getattr(vres, k)[rows] if k != "q" else vres.sim.q[rows]
+            errs[k] = max(errs[k], (a - b).abs().max().item())
+    hold(f"fleet:vs_single:B{FLEET_SINGLE_BATCH}", errs,
+         dict.fromkeys(errs, 0.0), FLEET_SINGLE_TOL,
+         ticks=FLEET_SINGLE_TICKS, robots=json.dumps(bench_fleet.ROBOTS))
+
+    # 23. Checkpointed rollout of the B=64 fleet over two segments,
+    # interrupted after the first, against the uninterrupted run; then a
+    # trace round trip.
+    ckpt_dir = ROOT / "quadruped_tpu_torch" / "_build" / "fleet_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    seg = FLEET_SINGLE_TICKS // 2
+    checkpoint.checkpointed_rollout(vs.config, vs.params, vs.cmd, seg, seg,
+                                    str(ckpt_dir))
+    resumed, last = checkpoint.checkpointed_rollout(
+        vs.config, vs.params, vs.cmd, 2 * seg, seg, str(ckpt_dir))
+    carry = rollout_mod.rollout_init(vs.config, vs.params,
+                                     FLEET_SINGLE_BATCH)
+    for _ in range(2):
+        carry, last_u = rollout_mod.rollout_segment(vs.config, vs.params,
+                                                    vs.cmd, carry, seg)
+    a, b = (dict(tree.leaves(x)) for x in (resumed, carry))
+    bitwise = a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+    trace_path = str(ckpt_dir / "trace.npz")
+    save_trace(trace_path, last, meta={"ticks": seg})
+    back, meta = load_trace(trace_path, like=last)
+    trace_diff = compare_traces(last, back, atol=0.0)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    phase(f"fleet:checkpoint:B{FLEET_SINGLE_BATCH}", segments=2,
+          segment_ticks=seg, resumed_step=resumed.step,
+          bitwise_equal_uninterrupted=bitwise,
+          last_segment_equal=bool(torch.equal(last.base_height_trace,
+                                              last_u.base_height_trace)),
+          trace_roundtrip_max_abs=trace_diff["max"],
+          trace_meta=json.dumps(meta))
+    if not (bitwise and resumed.step == 2 * seg
+            and trace_diff["within_tol"]):
+        raise RuntimeError("fleet:checkpoint: the resumed run is not bitwise "
+                           "the uninterrupted one, or the trace round trip "
+                           "changed it")
+
+
+def check_fleet_fixture(dev):
+    """24. The JAX fleet fixture (tests/data/fleet_a1.npz), on the card."""
+    from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
+
+    fleet_data = np.load(bench_fleet.FIXTURE)
+    for case in sorted(bench_fleet.GRIDS):
+        got = bench_fleet.fixture_run(case, dev)
+        errs = bench_fleet.fixture_errors(got, fleet_data, case)
+        phase(f"fixture:fleet_{case}", ticks=bench_fleet.FIXTURE_TICKS,
+              alive="equal",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
+        if bad:
+            raise RuntimeError(f"fixture fleet {case} mismatch: {bad}")
+
+
+def check_path_vs_single(dev, path: str):
+    """35. The B=64 fleet of `path` (16 scenarios a robot) against each
+    robot run alone at B=16 with one-robot parameters."""
+    from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
+    from quadruped_tpu_torch.benchmarks import fleet_paths as bench_paths
+
+    reset_counts()
+    f = bench_paths.build(path, GRID_CHECK, dev)
+    f, tr = bench_paths.run(f, FLEET_CHECK_TICKS)
+    torch.cuda.synchronize()
+    check_launches = path_launches(
+        f"fleet:{path}:vs_single", int(bench_paths.boots_mpc(path))
+        + bench_paths.mpc_solves(f, FLEET_CHECK_TICKS))
+    errs = {"height": 0.0, "q": 0.0}
+    for robot in bench_fleet.ROBOTS:
+        a = bench_paths.alone(f, robot, dev)
+        a, tra = bench_paths.run(a, FLEET_CHECK_TICKS)
+        rows = torch.as_tensor(a.rows, device=dev)
+        for k in errs:
+            errs[k] = max(errs[k],
+                          (tr[k][rows] - tra[k]).abs().max().item())
+    sim = ("srb" if isinstance(f.loop, bench_paths.RolloutLoop)
+           else "whole_body")
+    hold(f"fleet:{path}:vs_single:B{GRID_CHECK}", errs,
+         dict.fromkeys(errs, 0.0), FLEET_CHECK_TOL[sim], sim=sim,
+         ticks=FLEET_CHECK_TICKS, fleet_kernel_launches=check_launches)
+
+
+def check_tasks() -> dict:
+    """{name: function of the device} of every check phase."""
+    import functools
+
+    from quadruped_tpu_torch.benchmarks import fleet_paths as bench_paths
+
+    tasks = {"fixture": check_fixture,
+             "fixture:velocity": functools.partial(check_modes_fixture,
+                                                   which="velocity"),
+             "fixture:position": functools.partial(check_modes_fixture,
+                                                   which="position"),
+             "whole_body:cross_srb": check_cross_srb,
+             "fixture:wbc": check_wbc_fixture,
+             "fixture:whole_body": check_whole_body_fixture,
+             "fixture:walk": check_walk_windows,
+             "fixture:runner": check_runner_windows,
+             "fleet:vs_single": check_fleet_vs_single,
+             "fixture:fleet": check_fleet_fixture}
+    for path in bench_paths.PATHS:
+        tasks[f"fleet:{path}:vs_single"] = functools.partial(
+            check_path_vs_single, path=path)
+    return tasks
+
+
+def split_checks(names, n: int) -> list:
+    """`names` in n groups of about equal CHECK_SECONDS, the longest check
+    first into the lightest group; group 0 runs in this process."""
+    groups = [[] for _ in range(n)]
+    load = [0.0] * n
+    for name in sorted(names, key=lambda k: -CHECK_SECONDS[k]):
+        g = load.index(min(load))
+        groups[g].append(name)
+        load[g] += CHECK_SECONDS[name]
+    return groups
+
+
+def run_checks(dev, names):
+    tasks = check_tasks()
+    for name in names:
+        tasks[name](dev)
+
+
+def check_block(dev) -> dict:
+    """Every check phase, over CHECK_PROCESSES processes on the card at
+    once; the workers' lines are printed when they end. Raises if a check
+    fails in any process; no worker outlives the call."""
+    import subprocess
+
+    groups = split_checks(list(check_tasks()), CHECK_PROCESSES)
+    work = ROOT / "quadruped_tpu_torch" / "_build" / "checks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for i, names in enumerate(groups[1:], 1):
+            out = open(work / f"worker{i}.out", "w")
+            err = open(work / f"worker{i}.err", "w")
+            procs.append((i, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--checks",
+                 ",".join(names)], cwd=ROOT, stdout=out, stderr=err)))
+            out.close()
+            err.close()
+        run_checks(dev, groups[0])
+        failed = []
+        for i, proc in procs:
+            rc = proc.wait(timeout=CHECK_TIMEOUT_S)
+            print((work / f"worker{i}.out").read_text(), end="", flush=True)
+            if rc != 0:
+                failed.append(f"worker {i} ({','.join(groups[i])}) exit "
+                              f"{rc}:\n"
+                              + (work / f"worker{i}.err").read_text()[-4000:])
+        if failed:
+            raise RuntimeError("check phases failed:\n" + "\n".join(failed))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(processes=CHECK_PROCESSES,
+                groups=json.dumps(groups),
+                wall_s=time.perf_counter() - t0)
+
+
+def main_checks(names) -> int:
+    """A check worker: the named checks on the card, one line each."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run_checks(torch.device("cuda:0"), names)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's main path "
@@ -479,24 +1400,7 @@ def main() -> int:
     from quadruped_tpu_torch.robots import named_params
     from quadruped_tpu_torch.gait import named_gait
 
-    wrappers = {"fused_admm": fused_admm.fused_admm,
-                "fused_full_solve": fused_full_solve.fused_full_solve,
-                "unrolled_dots": mxu_rate.unrolled_dots}
-
-    def reset_counts():
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
-
-    def counts_after(path: str, kernel: str, expected=None) -> int:
-        """The launch counts of the run of `path` since reset_counts(): only
-        `kernel` launched, `expected` times (at least once if None)."""
-        counts = {name: w.launches for name, w in wrappers.items()}
-        n = counts[kernel]
-        others = sum(counts.values()) - n
-        if others or n == 0 or (expected is not None and n != expected):
-            raise RuntimeError(f"{path}: kernel launches {counts}, expected "
-                               f"{expected or 'some'} of {kernel} only")
-        return n
+    wrappers = kernel_wrappers()
 
     def admm_vs_plain(where: str, args, kw) -> tuple[float, float]:
         """fused_admm against its plain version on the same operands, held
@@ -567,16 +1471,6 @@ def main() -> int:
                     bf16_steps_ms=bf16_ms,
                     inverse_tflops=ns["bf16"] / inv_ms / 1e9,
                     bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms)
-
-    def hold(name: str, got: dict, want: dict, tol: dict, **extra):
-        """max |got - want| per key of `tol`, printed beside its limit on
-        the line `name`; raises if any is over its limit."""
-        errs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in tol}
-        phase(name, **extra,
-              **{k: f"{e:.3g}/{tol[k]:g}" for k, e in errs.items()})
-        bad = {k: e for k, e in errs.items() if not e <= tol[k]}
-        if bad:
-            raise RuntimeError(f"{name} mismatch: {bad}")
 
     full_tol = (f"forces {FULL_FORCE_ATOL} N, residual < {FULL_RESIDUAL}, "
                 f"gap <= {FULL_RESIDUAL_GAP}")
@@ -708,18 +1602,6 @@ def main() -> int:
           wall_s=wall, ticks_per_s=ticks / wall)
     if alive < 0.99:
         raise RuntimeError(f"alive fraction {alive} < 0.99")
-
-    # 4. The JAX fixture, on the card.
-    want = dict(np.load(FIXTURE))
-    fres = rollout_cadenced(config, params, TwistCommand.constant(
-        vx=want["vx"], device=dev), int(want["base_height_trace"].shape[1]))
-    got = {k: getattr(fres.sim, k).cpu().numpy() for k in FIXTURE_TOL
-           if hasattr(fres.sim, k)}
-    got["base_height_trace"] = fres.base_height_trace.cpu().numpy()
-    got["vel_trace"] = fres.vel_trace.cpu().numpy()
-    if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
-        raise RuntimeError("fixture: alive mask differs")
-    hold("fixture", got, want, FIXTURE_TOL)
 
     # 5. fused_full_solve vs plain at B=2048, n=120.
     full_timing, full_err = {}, 0.0
@@ -866,12 +1748,6 @@ def main() -> int:
                                f"{dforce / MG:.4f} m*g")
 
     # 8. The force-balance modes at B=2048: no kernel of the port launches.
-    def mode_config(mode):
-        return LocomotionConfig(mpc=mpc_mod.MpcConfig(),
-                                swing=swing_mod.SwingConfig(mode=mode),
-                                gait=TROT(dev), mode=mode,
-                                force_balance=ForceBalanceConfig())
-
     rng = np.random.default_rng(0)
     mode_cmds = {
         "velocity": (ControlMode.VELOCITY,
@@ -879,7 +1755,7 @@ def main() -> int:
         "position": (ControlMode.POSITION,
                      (0.1 * rng.random(BATCH)).astype(np.float32))}
     for name, (mode, vx) in mode_cmds.items():
-        config = mode_config(mode)
+        config = mode_config(mode, dev)
         cmd = TwistCommand.constant(vx=vx, body_height=0.27, device=dev)
         rollout_mod.rollout(config, params, cmd, 2)     # warm-up
         torch.cuda.synchronize()
@@ -913,25 +1789,6 @@ def main() -> int:
               ticks_per_s=BATCH * ticks / wall, **prof, card=json.dumps(smi))
         if alive < 0.99:
             raise RuntimeError(f"{name}: alive fraction {alive} < 0.99")
-
-    # 9. The JAX modes fixture, on the card.
-    data = np.load(MODES_FIXTURE)
-    for name, (mode, _) in mode_cmds.items():
-        want = {k[len(name) + 1:]: data[k] for k in data.files
-                if k.startswith(name + "_")}
-        ticks, step = int(want["ticks"]), int(data["trace_stride"])
-        fres = rollout_mod.rollout(mode_config(mode), params,
-                                   TwistCommand.constant(
-                                       vx=want["vx"], body_height=0.27,
-                                       device=dev), ticks)
-        got = {k: getattr(fres.sim, k).cpu().numpy() for k in FIXTURE_TOL
-               if hasattr(fres.sim, k)}
-        got["base_height_trace"] = \
-            fres.base_height_trace[:, step - 1::step].cpu().numpy()
-        got["vel_trace"] = fres.vel_trace[:, step - 1::step].cpu().numpy()
-        if not np.array_equal(fres.alive.cpu().numpy(), want["alive"]):
-            raise RuntimeError(f"fixture {name}: alive mask differs")
-        hold(f"fixture:{name}", got, want, MODES_FIXTURE_TOL, ticks=ticks)
 
     # 10. The WBC: one batched tick on the benchmark states, then the
     # use_wbc closed loop.
@@ -1043,68 +1900,6 @@ def main() -> int:
                             and h.max().item() <= 0.35):
         raise RuntimeError(f"whole_body: alive {alive}, final heights "
                            f"{h.min().item()}-{h.max().item()}")
-
-    cross_config = LocomotionConfig(
-        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
-        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev))
-    srb = rollout_mod.rollout(cross_config, params, TwistCommand.constant(
-        vx=0.25, body_height=0.27, batch=CROSS_BATCH, device=dev),
-        CROSS_TICKS)
-    loop = bench_wb.build(CROSS_BATCH, dev, cross_config,
-                          np.full(CROSS_BATCH, 0.25))
-    _, (h_wb, vx_wb) = bench_wb.run(loop, CROSS_TICKS)
-    win = slice(400, CROSS_TICKS)
-    dh = (h_wb[:, win].mean(1)
-          - srb.base_height_trace[:, win].mean(1)).abs().max().item()
-    dvx = (vx_wb[:, win].mean(1)
-           - srb.vel_trace[:, win, 0].mean(1)).abs().max().item()
-    phase(f"whole_body:cross_srb:B{CROSS_BATCH}", ticks=CROSS_TICKS,
-          srb_alive=srb.alive.mean().item(),
-          mean_height_wb=h_wb[:, win].mean().item(),
-          mean_height_srb=srb.base_height_trace[:, win].mean().item(),
-          max_abs_dheight=dh, max_abs_dvx=dvx, tol="0.03 m / 0.15 m/s")
-    if not (torch.isfinite(h_wb).all() and srb.alive.min().item() == 1.0
-            and dh < 0.03 and dvx < 0.15):
-        raise RuntimeError(f"cross-simulator check: height {dh}, vx {dvx}")
-
-    # 12. The JAX fixtures of the WBC and the whole-body loop, on the card.
-    data = dict(np.load(WBC_FIXTURE))
-    fres = rollout_mod.rollout(LocomotionConfig(
-        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=40),
-        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev),
-        wbc=wbc_mod.WbcConfig(), use_wbc=True), params,
-        TwistCommand.constant(vx=data["vx"], body_height=0.27, device=dev),
-        int(data["ticks"]))
-    stride = int(data["trace_stride"])
-    got = {k: getattr(fres.sim, k).cpu().numpy() for k in WBC_FIXTURE_TOL
-           if hasattr(fres.sim, k)}
-    for k in ("base_height_trace", "vel_trace"):
-        got[k] = getattr(fres, k)[:, stride - 1::stride].cpu().numpy()
-    got["forces_trace"] = fres.forces_trace.cpu().numpy()
-    got["tau_trace"] = fres.tau_trace.cpu().numpy()
-    if not np.array_equal(fres.alive.cpu().numpy(), data["alive"]):
-        raise RuntimeError("fixture wbc_rollout: alive mask differs")
-    hold("fixture:wbc_rollout", got, data, WBC_FIXTURE_TOL,
-         ticks=int(data["ticks"]))
-
-    step, wbc_args = bench_wbc.build(8, dev)
-    outs = {k: o.cpu().numpy() for k, o in
-            zip(("q_des", "dq_des", "tau"), step(*wbc_args))}
-    hold("fixture:wbc_tick", outs,
-         {k: data[f"wbc_tick_{k}"] for k in WBC_TICK_TOL}, WBC_TICK_TOL,
-         batch=8)
-
-    data = dict(np.load(WB_FIXTURE))
-    loop = bench_wb.build(len(data["vx"]), dev, LocomotionConfig(
-        mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120),
-        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(dev)), data["vx"])
-    loop, (h_wb, vx_wb) = bench_wb.run(loop, int(data["ticks"]))
-    got = {k: getattr(loop.sim.fb, k).cpu().numpy() for k in WB_FIXTURE_TOL
-           if hasattr(loop.sim.fb, k)}
-    got["height_trace"] = h_wb.cpu().numpy()
-    got["vx_trace"] = vx_wb.cpu().numpy()
-    hold("fixture:whole_body", got, data, WB_FIXTURE_TOL,
-         ticks=int(data["ticks"]))
 
     # 13. The statically-stable walk: the bench twin at B=256. The objects
     # the earlier phases left are moved out of the garbage collector's
@@ -1263,24 +2058,6 @@ def main() -> int:
                            f"unloaded on the walk table")
 
     # 15. Fixtures: the walk windows, and rows 0-3 of phase 14.
-    data = np.load(WALK_FIXTURE)
-    loops, rows = bench_walk.window_loops(data, dev)
-    port = {}
-    for sim_kind, wloop in loops.items():
-        _, wtr = bench_walk.run(wloop, WALK_WINDOW_TICKS, record=True)
-        for key, _, kind, _ in bench_walk.checkpoints():
-            if kind == sim_kind:
-                port[key] = {k: v[rows[key]].cpu().numpy()
-                             for k, v in wtr.items()}
-    for key, errs in bench_walk.window_errors(data, port).items():
-        missed = errs.pop("missed")
-        phase(f"fixture:walk_{key}", ticks=WALK_WINDOW_TICKS,
-              sub_states="equal", missed_port_jax=f"{missed[0]}/{missed[1]}",
-              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
-        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
-        if bad:
-            raise RuntimeError(f"fixture walk {key} mismatch: {bad}")
-
     data = np.load(TRANS_FIXTURE)
     n_fix = data["loop/phase"].shape[1]
     fix_res = [r for seg in seg_res[:bench_trans.FIXTURE_SEGMENTS]
@@ -1468,21 +2245,6 @@ def main() -> int:
         raise RuntimeError("runner:rc: SIT_DOWN not entered on exactly the "
                            "scripted scenarios and ticks (or non-finite)")
 
-    # 19. The runner fixture's windows, on the card.
-    loop, rows, noise = bench_runner.window_loop(runner_data, device=dev)
-    _, tr = bench_runner.run(
-        loop, max(w for _, w in bench_runner.CHECKPOINTS.values()),
-        noise=noise, record=True)
-    for key, errs in bench_runner.window_errors(runner_data, tr,
-                                                rows).items():
-        phase(f"fixture:runner_{key}",
-              ticks=bench_runner.CHECKPOINTS[key][1],
-              fsm_and_contact="equal",
-              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
-        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
-        if bad:
-            raise RuntimeError(f"fixture runner {key} mismatch: {bad}")
-
     # 20. The heterogeneous fleet: the twin of the JAX example's sweep at
     # B=2048 (the 16-scenario grid tiled 128 times).
     fleet = bench_fleet.build(FLEET_REPEATS, dev)
@@ -1597,75 +2359,6 @@ def main() -> int:
           plain_ms=fleet_plain_ms, bound_ms=fleet_bound[0],
           bound_by=fleet_bound[1], share_of_bound=fleet_bound[0]
           / fleet_k1_ms, card=json.dumps(smi))
-
-    # 22. Each robot of a B=64 fleet against the same robot run alone with
-    # one-robot parameters.
-    vs = bench_fleet.build(FLEET_SINGLE_BATCH // FLEET_GRID, dev)
-    vres = bench_fleet.run(vs, FLEET_SINGLE_TICKS)
-    errs = dict.fromkeys(FLEET_SINGLE_TOL, 0.0)
-    for r in bench_fleet.ROBOTS:
-        rows = torch.tensor([x == r for x in vs.robots], device=dev)
-        vx = vs.cmd.linear[rows, 0]
-        alone = rollout_mod.rollout(
-            bench_fleet.config(named_gait(bench_fleet.GAITS[0], dev)),
-            named_params(r, dev),
-            TwistCommand.constant(vx=vx, device=dev), FLEET_SINGLE_TICKS)
-        for k in FLEET_SINGLE_TOL:
-            a = getattr(alone, k) if k != "q" else alone.sim.q
-            b = getattr(vres, k)[rows] if k != "q" else vres.sim.q[rows]
-            errs[k] = max(errs[k], (a - b).abs().max().item())
-    hold(f"fleet:vs_single:B{FLEET_SINGLE_BATCH}", errs,
-         dict.fromkeys(errs, 0.0), FLEET_SINGLE_TOL,
-         ticks=FLEET_SINGLE_TICKS, robots=json.dumps(bench_fleet.ROBOTS))
-
-    # 23. Checkpointed rollout of the B=64 fleet over two segments,
-    # interrupted after the first, against the uninterrupted run; then a
-    # trace round trip.
-    ckpt_dir = ROOT / "quadruped_tpu_torch" / "_build" / "fleet_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    seg = FLEET_SINGLE_TICKS // 2
-    checkpoint.checkpointed_rollout(vs.config, vs.params, vs.cmd, seg, seg,
-                                    str(ckpt_dir))
-    resumed, last = checkpoint.checkpointed_rollout(
-        vs.config, vs.params, vs.cmd, 2 * seg, seg, str(ckpt_dir))
-    carry = rollout_mod.rollout_init(vs.config, vs.params,
-                                     FLEET_SINGLE_BATCH)
-    for _ in range(2):
-        carry, last_u = rollout_mod.rollout_segment(vs.config, vs.params,
-                                                    vs.cmd, carry, seg)
-    a, b = (dict(tree.leaves(x)) for x in (resumed, carry))
-    bitwise = a.keys() == b.keys() and all(
-        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
-        else a[k] == b[k] for k in a)
-    trace_path = str(ckpt_dir / "trace.npz")
-    save_trace(trace_path, last, meta={"ticks": seg})
-    back, meta = load_trace(trace_path, like=last)
-    trace_diff = compare_traces(last, back, atol=0.0)
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    phase(f"fleet:checkpoint:B{FLEET_SINGLE_BATCH}", segments=2,
-          segment_ticks=seg, resumed_step=resumed.step,
-          bitwise_equal_uninterrupted=bitwise,
-          last_segment_equal=bool(torch.equal(last.base_height_trace,
-                                              last_u.base_height_trace)),
-          trace_roundtrip_max_abs=trace_diff["max"],
-          trace_meta=json.dumps(meta))
-    if not (bitwise and resumed.step == 2 * seg
-            and trace_diff["within_tol"]):
-        raise RuntimeError("fleet:checkpoint: the resumed run is not bitwise "
-                           "the uninterrupted one, or the trace round trip "
-                           "changed it")
-
-    # 24. The JAX fleet fixture (tests/data/fleet_a1.npz), on the card.
-    fleet_data = np.load(bench_fleet.FIXTURE)
-    for case in sorted(bench_fleet.GRIDS):
-        got = bench_fleet.fixture_run(case, dev)
-        errs = bench_fleet.fixture_errors(got, fleet_data, case)
-        phase(f"fixture:fleet_{case}", ticks=bench_fleet.FIXTURE_TICKS,
-              alive="equal",
-              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
-        bad = {k: e for k, (e, lim) in errs.items() if not e <= lim}
-        if bad:
-            raise RuntimeError(f"fixture fleet {case} mismatch: {bad}")
 
     # 25. The seeded route of the bench (minv_reuse) against the cold route
     # at B=8192: one counted update each, the inverse stage of each timed
@@ -1913,17 +2606,6 @@ def main() -> int:
         return all(bool(torch.isfinite(t).all())
                    for t in bench_paths.state_tensors(f))
 
-    def path_launches(name: str, expected: int) -> int:
-        """The kernel launches since reset_counts(): K1 `expected` times
-        (the boot's cold start and one a batched MPC solve), or none where
-        the path solves no MPC."""
-        if expected:
-            return counts_after(name, "fused_admm", expected)
-        counts = {k: w.launches for k, w in wrappers.items()}
-        if any(counts.values()):
-            raise RuntimeError(f"{name} launched kernels: {counts}")
-        return 0
-
     fleet_k1 = {}
     for path, batch, ticks in FLEET_PATHS:
         bench_paths.run(bench_paths.build(path, GRID_CHECK, dev), 2)
@@ -2023,29 +2705,12 @@ def main() -> int:
           launches_wbc=fleet_k1["wbc"],
           launches_wholebody=fleet_k1["wholebody"], card=json.dumps(smi))
 
-    # Each path's B=64 fleet (16 scenarios a robot) against each robot run
-    # alone at B=16 with one-robot parameters.
-    for path in bench_paths.PATHS:
-        reset_counts()
-        f = bench_paths.build(path, GRID_CHECK, dev)
-        f, tr = bench_paths.run(f, FLEET_CHECK_TICKS)
-        torch.cuda.synchronize()
-        check_launches = path_launches(
-            f"fleet:{path}:vs_single", int(bench_paths.boots_mpc(path))
-            + bench_paths.mpc_solves(f, FLEET_CHECK_TICKS))
-        errs = {"height": 0.0, "q": 0.0}
-        for robot in bench_fleet.ROBOTS:
-            a = bench_paths.alone(f, robot, dev)
-            a, tra = bench_paths.run(a, FLEET_CHECK_TICKS)
-            rows = torch.as_tensor(a.rows, device=dev)
-            for k in errs:
-                errs[k] = max(errs[k],
-                              (tr[k][rows] - tra[k]).abs().max().item())
-        sim = ("srb" if isinstance(f.loop, bench_paths.RolloutLoop)
-               else "whole_body")
-        hold(f"fleet:{path}:vs_single:B{GRID_CHECK}", errs,
-             dict.fromkeys(errs, 0.0), FLEET_CHECK_TOL[sim], sim=sim,
-             ticks=FLEET_CHECK_TICKS, fleet_kernel_launches=check_launches)
+    # The check phases (4, 9, the cross-simulator check of 11, 12, the walk
+    # windows of 15, 19, 22-24, the per-path fleets of 35), all at once.
+    phase("checks", **check_block(dev))
+
+    # 36-39. The host bridge, the hil tick, distributed/.
+    late = phases_bridge_hil_distributed(dev, smi)
 
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
@@ -2102,6 +2767,7 @@ def main() -> int:
         "ms_z0": z0_ms["z0"], "ms_no_z0": z0_ms["none"],
         "plain_ms_z0": z0_plain_ms, "bound_ms_z0": z0_bound[0],
         "max_abs_err_z0": z0_err,
+        **late,
     }, {
         "name": "fused_full_solve", "route": "cuda",
         "source": "quadruped_tpu_torch/csrc/fused_full_solve.cu",
@@ -2145,4 +2811,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--checks"]:
+        sys.exit(main_checks(sys.argv[2].split(",")))
     sys.exit(main())

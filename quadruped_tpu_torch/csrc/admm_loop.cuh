@@ -4,7 +4,7 @@
 //
 // What `iterate` computes is the loop of
 // quadruped_tpu/solvers/pallas_admm.py::_admm_loop: all `iters` iterations of
-//   x_t  = M^{-T} (sigma x - q + A^T (rho z_hat - y_hat))
+//   x_t  = W (sigma x - q + A^T (rho z_hat - y_hat)),  W[c, j] = Slice(j, c)
 //   z_t  = A x_t,  x <- alpha x_t + (1 - alpha) x
 //   z_r  = alpha z_t + (1 - alpha) z_hat
 //   z'   = clip(z_r + y_hat / rho, lo, hi),  y' = y_hat + rho (z_r - z')
@@ -15,10 +15,13 @@
 // schemes run this one loop.
 //
 // Conventions carried over from the TPU kernel:
-//   * transpose: the mat-vec contracts over M^{-1}'s FIRST index,
-//     x_t[i] = sum_j rhs[j] * Minv[j, i] (pallas_admm.py builds m_wide so
-//     that its dot does this; a Newton-Schulz inverse is symmetric only to
-//     roundoff);
+//   * orientation: the mat-vec contracts over the slice's FIRST index,
+//     x_t[i] = sum_j rhs[j] * Slice(j, i), as pallas_admm.py's dot does
+//     with its m_wide. fused_full_solve.cu loads its own inverse as it is
+//     (x_t = X^T rhs, the Pallas full solve's loop); fused_admm.cu loads
+//     M^{-1} transposed (`load_slice<.., true>`), so that its x_t is
+//     M^{-1} rhs, the JAX `solve`'s mat-vec (a Newton-Schulz inverse is
+//     symmetric only to ~1e-4, and the loop amplifies the gap);
 //   * 1/rho is taken once per row before the loop and multiplied after;
 //   * z_0 = clip(A x_0, lo, hi), or the z_0 the caller gives (the carried
 //     iterate of a loop that ran its first iterations elsewhere: the z of
@@ -119,9 +122,12 @@ struct Slice {
 };
 
 // Loads the slice from a row-major n x n matrix at src (row stride ld, a
-// multiple of 4, 16-byte aligned; device or shared memory). Entries
-// outside the live n x n block are zero.
-template <int S, int R>
+// multiple of 4, 16-byte aligned; device or shared memory), or with
+// kTransposed from its transpose: m[k][u] = src[4 g + u, s + S k]. That
+// load takes four scalar reads a row in place of one float4; the S lanes
+// of a column group still read S consecutive floats. Entries outside the
+// live n x n block are zero.
+template <int S, int R, bool kTransposed = false>
 __device__ __forceinline__ void load_slice(Slice<S, R>& sl,
                                            const float* __restrict__ src,
                                            int ld, int n) {
@@ -131,9 +137,15 @@ __device__ __forceinline__ void load_slice(Slice<S, R>& sl,
   for (int k = 0; k < R; ++k) {
     const int j = s + S * k;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < n && c0 < n)
-      v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(j) * ld +
-                                           c0);
+    if (j < n && c0 < n) {
+      if (kTransposed) {
+        const float* col = src + static_cast<size_t>(c0) * ld + j;
+        v = make_float4(col[0], col[ld], col[2 * ld], col[3 * ld]);
+      } else {
+        v = *reinterpret_cast<const float4*>(
+            src + static_cast<size_t>(j) * ld + c0);
+      }
+    }
     sl.m[k][0] = v.x;
     sl.m[k][1] = v.y;
     sl.m[k][2] = v.z;

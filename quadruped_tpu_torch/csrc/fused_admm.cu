@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) fused_admm_kernel(
   const admm::Vectors v = admm::carve(smem);
   const float mub = mu[b];
   admm::Slice<S, R> slice;
-  admm::load_slice(slice, m_inv + b * n * n, n, n);
+  admm::load_slice<S, R, true>(slice, m_inv + b * n * n, n, n);
   admm::Lane lane =
       admm::load(v, n, b, mub, q, lo, hi, rho, x0, y0, kZ0 ? z0 : nullptr);
   admm::iterate(slice, v, lane, n, mub, iters, sigma, alpha, accel_restart);

@@ -5,9 +5,11 @@ normalization, per-row rho with a 100x boost on pinned fz rows,
 M = gamma d P d + sigma I + blockdiag(A^T rho A), a mixed-precision
 Newton-Schulz inverse of M (plain `torch.matmul`, as the JAX package leaves
 it to XLA outside any kernel), then the ADMM loop. The loop is the
-`fused_admm` kernel (solvers/fused_admm.py): the JAX package's `solve` and
-`solve_fused` compute the same thing, so the port has one function, the
-closed loop's solver, and no `solve_fused`. `solve_fused_full` hands M
+`fused_admm` kernel (solvers/fused_admm.py), whose mat-vec is the JAX
+`solve`'s M^{-1} rhs (the Pallas loop of `solve_fused` contracts over the
+first index, M^{-T} rhs, which differs by the inverse's asymmetry); the
+port has one function, the closed loop's solver, and no `solve_fused`.
+`solve_fused_full` hands M
 itself to the `fused_full_solve` kernel, which inverts it and runs the loop
 on chip.
 
@@ -377,9 +379,8 @@ def bf16_head(inp: AdmmInputs, iters: int, sigma: float, alpha: float):
     to bf16 (the JAX `solve`'s bf16 loop); returns the iterate (x, z, y).
 
     As in JAX: rhs goes in as a hi / lo pair of bf16 columns, both through
-    one product with float32 sums, and the mat-vec contracts over M^{-1}'s
-    second index (the kernel and the Pallas loop contract over the first;
-    Newton-Schulz leaves M^{-1} symmetric only to roundoff)."""
+    one product with float32 sums; the mat-vec is M^{-1} rhs, as in the
+    `fused_admm` loop that continues from it."""
     m_bf = _bf16(inp.m_inv)
     x, y = inp.x0, inp.y0
     z = torch.clamp(_apply_a(x, inp.mu), inp.lo, inp.hi)
@@ -470,9 +471,9 @@ def solve(prob: ConeQP, *, iters: int = 40, rho: float = RHO_CONE,
           seed_rescue: bool = False, return_inv_carry: bool = False):
     """Fixed-budget ADMM on the cone QP, batch [B] first.
 
-    The JAX package's `solve` (Newton-Schulz in XLA, the loop in XLA) and
-    its `solve_fused` (the same inverse, the loop in the Pallas kernel)
-    both map to this function: the loop runs in the `fused_admm` kernel.
+    The JAX package's `solve` (Newton-Schulz in XLA, the loop in XLA) maps
+    to this function: the loop runs in the `fused_admm` kernel, with the
+    same mat-vec M^{-1} rhs.
 
     accel_restart > 0 is Fast-ADMM (Nesterov momentum on (z, y) restarted
     every accel_restart iterations; pass alpha=1.0 with it).

@@ -57,8 +57,10 @@ def fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
                          z0=None):
     """The kernel's loop in plain torch ops; returns (x [B, n], y [B, m]).
 
-    Same arithmetic as the kernel and as pallas_admm._admm_loop: the
-    mat-vec contracts over M^{-1}'s first index, 1/rho is taken once, and
+    Same arithmetic as the kernel and as pallas_admm._admm_loop, with the
+    mat-vec x_t = M^{-1} rhs of the JAX `solve` (the Pallas kernel
+    contracts over its matrix's first index, so it computes this loop when
+    it is given M^{-1} transposed); 1/rho is taken once, and
     the momentum schedule (t_k, beta) is float32 per iteration. With
     accel_restart == 0, beta is 0 and (z_hat, y_hat) = (z, y): the relaxed
     scheme. The loop starts from z0 [B, m] where it is given (an iterate
@@ -72,7 +74,7 @@ def fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
     tk = np.float32(1.0)
     for k in range(iters):
         rhs = sigma * x - q + _apply_at(rho * z_hat - y_hat, mu)
-        x_t = torch.bmm(rhs[:, None, :], m_inv)[:, 0]
+        x_t = torch.bmm(rhs[:, None, :], m_inv.transpose(1, 2))[:, 0]
         z_t = _apply_a(x_t, mu)
         x = alpha * x_t + (1.0 - alpha) * x
         z_rel = alpha * z_t + (1.0 - alpha) * z_hat
@@ -148,7 +150,8 @@ def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
 
     m_inv [B, n, n], q [B, n], mu [B], lo/hi/rho [B, m], x0 [B, n],
     y0 [B, m] and optionally z0 [B, m] (the loop's z to start from; None:
-    clip(A x0, lo, hi)), all float32 on one device (n = 3T, m = 5T).
+    clip(A x0, lo, hi)), all float32 on one device (n = 3T, m = 5T). Each
+    iteration's mat-vec is M^{-1} rhs, as in the JAX `solve`.
     """
     check_operands(m_inv, q, mu, lo, hi, rho, x0, y0, z0=z0)
     kw = dict(iters=iters, sigma=sigma, alpha=alpha,

@@ -105,9 +105,14 @@ def fused_full_solve_reference(m, q, mu, lo, hi, rho, x0, y0, *,
                                ns_iters: int, ns_f32_polish: int, iters: int,
                                sigma: float, alpha: float,
                                accel_restart: int = 0):
-    """The kernel in plain torch ops; returns (x [B, n], y [B, m], X)."""
+    """The kernel in plain torch ops; returns (x [B, n], y [B, m], X).
+
+    Its loop contracts over X's first index (x_t = X^T rhs), as the Pallas
+    full solve's does, so K1's plain loop (x_t = M^{-1} rhs) is given X^T.
+    """
     m_inv = newton_schulz_reference(m, ns_iters, ns_f32_polish)
-    x, y = _fa.fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0,
+    x, y = _fa.fused_admm_reference(m_inv.transpose(1, 2), q, mu, lo, hi,
+                                    rho, x0, y0,
                                     iters=iters, sigma=sigma, alpha=alpha,
                                     accel_restart=accel_restart)
     return x, y, m_inv

@@ -80,7 +80,7 @@ def _relaxed_steps(args, z, iters, sigma, alpha):
     rho_inv = 1.0 / rho
     for _ in range(iters):
         rhs = sigma * x - q + _apply_at(rho * z - y, mu)
-        x_t = torch.bmm(rhs[:, None, :], m_inv)[:, 0]
+        x_t = torch.bmm(rhs[:, None, :], m_inv.transpose(1, 2))[:, 0]
         z_t = _apply_a(x_t, mu)
         x = alpha * x_t + (1.0 - alpha) * x
         z_rel = alpha * z_t + (1.0 - alpha) * z

@@ -10,8 +10,14 @@
   the CPU capability (`torch.backends.cpu.get_cpu_capability()`) of the
   host that made it, written by
       git archive 36e5933 | tar -x -C <dir>
+      sed -i 's/fused_admm(inp.m_inv, /fused_admm(inp.m_inv.transpose(1, 2), /' \
+          <dir>/quadruped_tpu_torch/solvers/cone_qp.py
       PYTHONPATH=<dir> python tests/test_torch_fleet_guards.py
-  and the test asks for equal arrays, bit for bit. A mismatch names both
+  (the sed gives that tree the one later change of the one-robot
+  arithmetic: K1's mat-vec becomes the JAX `solve`'s M^{-1} rhs, which
+  `fused_admm` now computes from M^{-1} as given), and the test asks for
+  equal arrays,
+  bit for bit. A mismatch names both
   hosts' torch and CPU capability. Where they differ, CPU kernels of
   another build or SIMD width may round the last bit otherwise with no
   change of code: regenerate the fixture on that host with the same two
@@ -31,8 +37,10 @@
   robots, and short WBC, whole-body and runner loops), recorded on the
   tree before they took a fleet (commit 9d0e99e) by
       git archive 9d0e99e | tar -x -C <dir>
+      sed -i 's/fused_admm(inp.m_inv, /fused_admm(inp.m_inv.transpose(1, 2), /' \
+          <dir>/quadruped_tpu_torch/solvers/cone_qp.py
       PYTHONPATH=<dir> python tests/test_torch_fleet_guards.py b
-  with the same host metadata and the same rule.
+  with the same sed, the same host metadata and the same rule.
 """
 
 import dataclasses

@@ -3,7 +3,8 @@
 * On CPU: the plain version `fused_admm_reference` against the JAX Pallas
   kernel `pallas_admm.fused_admm`, which runs in interpret mode on CPU as
   tests/test_pallas_admm.py runs it. Both get the same scaled problem and
-  the same M^{-1} (the JAX one, unpadded for the port).
+  the same M^{-1} (the JAX one, unpadded and transposed for the port,
+  whose loop takes it as the JAX `solve` does).
 * On the card (marker `cuda`): the CUDA kernel against the plain version at
   B=256, H=5, 10 and 16 (n = 60, 120, 192), and the boot solve the closed
   loop runs at unblocked H=16 (n = 192, 400 relaxed iterations) held on
@@ -125,8 +126,12 @@ def test_plain_matches_pallas_kernel(name, iters, alpha, restart, warm):
         return torch.from_numpy(np.array(a, np.float32))
 
     m = 5 * t
+    # The Pallas loop contracts over its matrix's first index; the port's
+    # takes M^{-1} as the JAX `solve` does (x_t = M^{-1} rhs), so it is
+    # given the transpose of the Pallas operand.
     xt, yt = tfa.fused_admm_reference(
-        tt(ins["m_inv"])[:, :n, :n].contiguous(), tt(ins["q"])[:, :n],
+        tt(ins["m_inv"])[:, :n, :n].transpose(1, 2).contiguous(),
+        tt(ins["q"])[:, :n],
         tt(ins["mu"]).expand(B), tt(ins["lo"])[:, :m], tt(ins["hi"])[:, :m],
         tt(ins["rho_rows"])[:, :m], tt(ins["x0"])[:, :n],
         tt(ins["y0"])[:, :m], iters=iters, sigma=tcq.SIGMA, alpha=alpha,
