@@ -222,13 +222,36 @@ Phases 36-39 run the host bridge, the hil tick and distributed/:
      on 8 bench problems at the JAX test_solver_sp quality bound, and one
      `scaling_report` reading at one rank (B=1024) through
      `sharded_solve_stats`.
+Phases 40-41 run the ten examples of quadruped_tpu_torch/examples/, one
+robot each (B=1; the fleet sweep 16):
+ 40. `examples:<name>`: each example's `run` at the length of its CPU
+     test (examples/fixture.py: a1_trot 200 ticks, aliengo_wbc_trot 100,
+     fleet_sweep 60, keyboard_teleop two chunks, whole_body_standup 200,
+     viz3d 100, lite3_walk 150, stair_climb and gap_crossing 100; the
+     bridge's dry run and 50 ticks of its UDP loop against a loopback MCU
+     in each wire mode) held to the JAX examples' traces of
+     tests/data/examples_jax.npz at the CPU tests' limits, fused_admm once
+     a batched MPC solve (the boot's cold start included; none on the
+     walks, the boot's only on the stand-up ramp). The check of an
+     example that phase 41 times (a1_trot, viz3d, lite3_walk,
+     stair_climb: each at its check's length) is made on that timed run;
+ 41. `examples:timed:<name>`: ms a tick at B=1 of example_a1_trot (200
+     ticks), example_viz3d (100), example_lite3_walk (150) and
+     example_stair_climb (100; EXAMPLE_TIMED), run alone in a fresh
+     process (`--timed`, as a user runs an example), each followed by n
+     profiled ticks of the loop the timed run ended with (CUDA kernels a
+     tick and the device's busy share) and printed beside the wall time
+     it would take at its default length;
+     and fused_admm on a call captured from example_a1_trot (B=1, n=120,
+     40 iterations) and example_aliengo_wbc_trot (B=1, n=60, 40
+     iterations) against its plain version and timed.
 The check phases print no time: 4, 9, the cross-simulator check of 11,
-the fixtures of 12, the walk windows of 15, 19, 22-24 and the per-path
-B=64 fleets of 35. They run after phase 35 and before phase 36, split
-over CHECK_PROCESSES processes on the card at once (this one and workers
-started as `chip_smoke.py --checks NAME,...`; the line `checks` names the
-groups), so their lines come in that order; the phases that print a time
-run alone.
+the fixtures of 12, the walk windows of 15, 19, 22-24, the per-path
+B=64 fleets of 35 and the examples of 40. They run after phase 35 and
+before phase 36, split over CHECK_PROCESSES fresh worker processes on the
+card at once (`chip_smoke.py --checks NAME,... RESULTS`; the line `checks`
+names the groups), so their lines come in that order; the phases that
+print a time run alone.
 Every phase line ends with its wall time since the previous line. The last
 two lines are a JSON object describing the kernels (with each
 kernel's bound: the larger of the bytes it must move over the memory rate
@@ -401,19 +424,25 @@ FLEET_CHECK_TOL = {
     "whole_body": {"height": 5e-4, "q": 4e-2}}
 WB_FLEET_BATCH = 1024
 # The check phases (`check_block`): processes on the card at once (the
-# checks are launch-bound and leave the card idle most of the time), a
-# worker's limit, and each check's seconds in a serial run of the script
-# (NVIDIA H100 80GB HBM3, 700 W), which balance the split.
-CHECK_PROCESSES, CHECK_TIMEOUT_S = 3, 600
+# checks are launch-bound and leave the card idle most of the time; the
+# block took 154.1 s in four processes and 179.5 s in three, NVIDIA H100
+# 80GB HBM3, 700 W, PERF.md §6), a worker's limit, and each check's
+# seconds in a block of four processes (its lines, the same card), which
+# balance the split.
+CHECK_PROCESSES, CHECK_TIMEOUT_S = 4, 600
 CHECK_SECONDS = {
-    "fixture": 0.9, "fixture:velocity": 53.1, "fixture:position": 37.7,
-    "whole_body:cross_srb": 66.2, "fixture:wbc": 11.1,
-    "fixture:whole_body": 10.2, "fixture:walk": 39.0,
-    "fixture:runner": 21.5, "fleet:vs_single": 19.0, "fixture:fleet": 7.2,
-    "fleet:velocity:vs_single": 14.0, "fleet:position:vs_single": 15.7,
-    "fleet:walk:vs_single": 22.1, "fleet:wbc:vs_single": 3.2,
-    "fleet:wholebody:vs_single": 4.0, "fleet:runner:vs_single": 3.9,
-    "fleet:runner_trot:vs_single": 4.8}
+    "whole_body:cross_srb": 97.5, "fixture:velocity": 50.2,
+    "fixture:walk": 42.9,
+    "fixture:position": 40.2, "examples:gap_crossing": 38.8,
+    "fixture:runner": 30.6, "fleet:walk:vs_single": 25.9,
+    "fleet:velocity:vs_single": 23.4, "fleet:vs_single": 21.9,
+    "examples:whole_body_standup": 20.4, "fleet:position:vs_single": 17.3,
+    "fixture:whole_body": 13.8, "fixture:wbc": 11.7, "fixture:fleet": 9.2,
+    "fleet:runner_trot:vs_single": 7.2, "examples:aliengo_wbc_trot": 7.1,
+    "examples:hardware_bridge": 6.5, "examples:keyboard_teleop": 5.8,
+    "fleet:runner:vs_single": 5.4, "fleet:wholebody:vs_single": 5.2,
+    "fleet:wbc:vs_single": 3.3, "examples:fleet_sweep": 1.9,
+    "fixture": 1.0}
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): device memory bytes/s
 # and operations/s by type (bf16 and TF32 on the tensor cores, float32 off
 # them).
@@ -487,6 +516,14 @@ def phase(name: str, **values):
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in values.items()),
           flush=True)
 
+
+# 41. The examples timed at B=1: {example: (ticks of the device profile,
+# the example's default length)}. The timed run is the example's check at
+# its length (examples/fixture.py SHORT: a1_trot 200 ticks, viz3d 100,
+# lite3_walk 150, stair_climb 100), held to the JAX traces there; phase
+# 40's block leaves these out.
+EXAMPLE_TIMED = {"a1_trot": (16, 1000), "viz3d": (8, 1000),
+                 "lite3_walk": (1, 4000), "stair_climb": (1, 12000)}
 
 # 36-39. The host bridge, the hil tick at B=1 and B=16, distributed/ on a
 # one-rank NCCL group.
@@ -689,6 +726,73 @@ def k1_reading(where: str, args, kw) -> dict:
                                 (yk - yr).abs().max().item()),
                 ms=ms, ms_per_call=per_call, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms)
+
+
+def example_advance(name: str, loop):
+    """A function advancing `loop`, the loop a timed example's run ended
+    with (its `loop`), by n ticks."""
+    from quadruped_tpu_torch.benchmarks import walk as bench_walk
+    from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
+    from quadruped_tpu_torch.sim.rollout import rollout_segment
+
+    loop = [loop]
+    if name == "a1_trot":
+        def advance(n: int):
+            cfg, params, cmd, carry = loop[0]
+            carry, _ = rollout_segment(cfg, params, cmd, carry, n)
+            loop[0] = (cfg, params, cmd, carry)
+    else:
+        bench = bench_wb if name == "viz3d" else bench_walk
+
+        def advance(n: int):
+            loop[0] = bench.run(loop[0], n)[0]
+    return advance
+
+
+def phase_examples_timed(dev, smi: str) -> tuple[dict, dict]:
+    """Phase 41, in a process of its own (`main_timed`); returns the K1
+    readings and launches of the kernels line."""
+    from quadruped_tpu_torch.examples import fixture as fx
+
+    data = np.load(fx.FIXTURE)
+    launches = {}
+    for name, (k, default) in EXAMPLE_TIMED.items():
+        reset_counts()
+        out = fx.short_run(name, dev)
+        ms = 1e3 * out["loop_s"] / out["ticks"]
+        launches[name] = path_launches(
+            f"examples:timed:{name}", fx.k1_launches(name, out["ticks"]))
+        # The profiled ticks come after the timed run, so that nothing the
+        # profiler leaves behind is timed: k more ticks of the loop it
+        # ended with.
+        advance = example_advance(name, out["loop"])
+        prof = device_profile(lambda: advance(k), k, ms)
+        errs = fx.errors(name, out, data)
+        phase(f"examples:timed:{name}", batch=1, ticks=out["ticks"],
+              ms_per_tick=ms, default_ticks=default,
+              default_wall_s_at_this_rate=ms * default / 1e3,
+              card=json.dumps(smi),
+              kernels_per_tick=prof["kernels_per_tick"],
+              device_busy_share=prof["device_busy_share"],
+              kernel_launches=launches[name], held_to_jax="yes",
+              **{q: f"{e:.3g}/{lim:.3g}" for q, (e, lim) in errs.items()})
+        if fx.over(errs):
+            raise RuntimeError(f"examples:{name} mismatch: "
+                               f"{fx.over(errs)}")
+
+    # K1 on a call captured from each MPC shape of the examples.
+    readings = {}
+    for name, tag in (("a1_trot", "example_b1_n120_40it"),
+                      ("aliengo_wbc_trot", "example_b1_n60_40it")):
+        calls = capture_k1(lambda: fx.module(name).run(steps=10, device=dev))
+        args, kw = next((a, k) for a, k in calls if k["iters"] == 40)
+        r = k1_reading(f"examples:{name}", args, kw)
+        phase(f"examples:k1:{tag}", example=name, tol=f"atol {KERNEL_ATOL} "
+              f"rtol {KERNEL_RTOL}", card=json.dumps(smi), **r)
+        readings.update({f"ms_{tag}": r["ms"], f"plain_ms_{tag}":
+                         r["plain_ms"], f"bound_ms_{tag}": r["bound_ms"],
+                         f"max_abs_err_{tag}": r["max_abs_err"]})
+    return readings, launches
 
 
 def phases_bridge_hil_distributed(dev, smi: str) -> dict:
@@ -949,10 +1053,9 @@ def mode_config(mode, dev):
 # The check phases: the card against the JAX package's fixtures, the
 # cross-simulator check, and each fleet against its robots run alone. They
 # print no time, so they run together after phase 35, split over
-# CHECK_PROCESSES processes on the card at once: this one, and workers
-# started as `chip_smoke.py --checks NAME,...`. Each check is one function
-# of the device; CHECK_SECONDS (their seconds in a serial run on the card,
-# NVIDIA H100 80GB HBM3 at 700 W) balances the split.
+# CHECK_PROCESSES worker processes on the card at once, started as
+# `chip_smoke.py --checks NAME,... RESULTS`. Each check is one function of
+# the device; CHECK_SECONDS balances the split.
 
 
 def check_fixture(dev):
@@ -1266,11 +1369,68 @@ def check_path_vs_single(dev, path: str):
          ticks=FLEET_CHECK_TICKS, fleet_kernel_launches=check_launches)
 
 
+def check_example(dev, name: str) -> dict:
+    """40. One example at the length of its CPU test, held to the JAX
+    example's traces; returns its K1 launches."""
+    from quadruped_tpu_torch.examples import fixture as fx
+
+    data = np.load(fx.FIXTURE)
+    reset_counts()
+    out = fx.short_run(name, dev)
+    launches = path_launches(f"examples:{name}",
+                             fx.k1_launches(name, out["ticks"]))
+    errs = fx.errors(name, out, data)
+    phase(f"examples:{name}", ticks=out["ticks"], kernel_launches=launches,
+          **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+    if fx.over(errs):
+        raise RuntimeError(f"examples:{name} mismatch: {fx.over(errs)}")
+    return {name: launches}
+
+
+def check_example_bridge(dev) -> dict:
+    """40. The bridge example: its dry run, then its UDP loop in each wire
+    mode against a loopback MCU, held to the JAX loop on the rows read;
+    returns its K1 launches by run."""
+    from quadruped_tpu_torch.examples import fixture as fx
+
+    data = np.load(fx.FIXTURE)
+    launches = {}
+    reset_counts()
+    out = fx.bridge_dry_run(dev)
+    launches["hardware_bridge:dry_run"] = path_launches(
+        "examples:hardware_bridge:dry_run",
+        fx.k1_launches("hardware_bridge", out["ticks"]))
+    errs = fx.errors("bridge_dry_run", out, data)
+    phase("examples:hardware_bridge:dry_run", ticks=1,
+          kernel_launches=launches["hardware_bridge:dry_run"],
+          **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+    bad = fx.over(errs)
+    for wire in fx.WIRES:
+        reset_counts()
+        out = fx.bridge_run(wire, wire_state_packet(wire), dev)
+        key = f"hardware_bridge:{wire}"
+        launches[key] = path_launches(
+            f"examples:{key}", fx.k1_launches("hardware_bridge",
+                                              out["ticks"]))
+        errs, boot = fx.bridge_errors(wire, out, data)
+        phase(f"examples:{key}", ticks=out["ticks"], boot=boot,
+              kernel_launches=launches[key],
+              received=len(out["received"]),
+              timer_jitter_us=f"{out['jitter_mean_us']:.1f}/"
+                              f"{out['jitter_max_us']:.1f}",
+              **{k: f"{e:.3g}/{lim:.3g}" for k, (e, lim) in errs.items()})
+        bad.update(fx.over(errs))
+    if bad:
+        raise RuntimeError(f"examples:hardware_bridge mismatch: {bad}")
+    return launches
+
+
 def check_tasks() -> dict:
     """{name: function of the device} of every check phase."""
     import functools
 
     from quadruped_tpu_torch.benchmarks import fleet_paths as bench_paths
+    from quadruped_tpu_torch.examples import fixture as fx
 
     tasks = {"fixture": check_fixture,
              "fixture:velocity": functools.partial(check_modes_fixture,
@@ -1287,12 +1447,17 @@ def check_tasks() -> dict:
     for path in bench_paths.PATHS:
         tasks[f"fleet:{path}:vs_single"] = functools.partial(
             check_path_vs_single, path=path)
+    for name in fx.SHORT:
+        if name not in EXAMPLE_TIMED:
+            tasks[f"examples:{name}"] = functools.partial(check_example,
+                                                          name=name)
+    tasks["examples:hardware_bridge"] = check_example_bridge
     return tasks
 
 
 def split_checks(names, n: int) -> list:
     """`names` in n groups of about equal CHECK_SECONDS, the longest check
-    first into the lightest group; group 0 runs in this process."""
+    first into the lightest group."""
     groups = [[] for _ in range(n)]
     load = [0.0] * n
     for name in sorted(names, key=lambda k: -CHECK_SECONDS[k]):
@@ -1302,16 +1467,22 @@ def split_checks(names, n: int) -> list:
     return groups
 
 
-def run_checks(dev, names):
+def run_checks(dev, names) -> dict:
+    """The named checks, in turn; the union of what they return (the
+    examples' K1 launches)."""
     tasks = check_tasks()
+    results = {}
     for name in names:
-        tasks[name](dev)
+        results.update(tasks[name](dev) or {})
+    return results
 
 
-def check_block(dev) -> dict:
-    """Every check phase, over CHECK_PROCESSES processes on the card at
-    once; the workers' lines are printed when they end. Raises if a check
-    fails in any process; no worker outlives the call."""
+def check_block() -> tuple[dict, dict]:
+    """Every check phase, over CHECK_PROCESSES fresh worker processes on the
+    card at once (late in this process every launch costs more: PERF.md
+    §6); their lines are printed when they end. Returns (the
+    `checks` line's values, the union of what the checks return). Raises
+    if a check fails in any process; no worker outlives the call."""
     import subprocess
 
     groups = split_checks(list(check_tasks()), CHECK_PROCESSES)
@@ -1321,20 +1492,23 @@ def check_block(dev) -> dict:
     procs = []
     t0 = time.perf_counter()
     try:
-        for i, names in enumerate(groups[1:], 1):
+        for i, names in enumerate(groups):
             out = open(work / f"worker{i}.out", "w")
             err = open(work / f"worker{i}.err", "w")
             procs.append((i, subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--checks",
-                 ",".join(names)], cwd=ROOT, stdout=out, stderr=err)))
+                 ",".join(names), str(work / f"worker{i}.json")], cwd=ROOT,
+                stdout=out, stderr=err)))
             out.close()
             err.close()
-        run_checks(dev, groups[0])
-        failed = []
+        results, failed = {}, []
         for i, proc in procs:
             rc = proc.wait(timeout=CHECK_TIMEOUT_S)
             print((work / f"worker{i}.out").read_text(), end="", flush=True)
-            if rc != 0:
+            if rc == 0:
+                results.update(json.loads(
+                    (work / f"worker{i}.json").read_text()))
+            else:
                 failed.append(f"worker {i} ({','.join(groups[i])}) exit "
                               f"{rc}:\n"
                               + (work / f"worker{i}.err").read_text()[-4000:])
@@ -1346,19 +1520,64 @@ def check_block(dev) -> dict:
                 proc.kill()
                 proc.wait()
     shutil.rmtree(work, ignore_errors=True)
-    return dict(processes=CHECK_PROCESSES,
-                groups=json.dumps(groups),
-                wall_s=time.perf_counter() - t0)
+    return dict(processes=CHECK_PROCESSES, groups=json.dumps(groups),
+                wall_s=time.perf_counter() - t0), results
 
 
-def main_checks(names) -> int:
-    """A check worker: the named checks on the card, one line each."""
+def main_checks(names, results_path: str) -> int:
+    """A check worker: the named checks on the card, one line each; what
+    they return goes to `results_path` as JSON."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run_checks(torch.device("cuda:0"), names)
+    results = run_checks(torch.device("cuda:0"), names)
+    Path(results_path).write_text(json.dumps(results))
     return 0
+
+
+def main_timed(results_path: str) -> int:
+    """Phase 41 in a process of its own: what it returns goes to
+    `results_path` as JSON."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    from quadruped_tpu_torch.utils import card
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    readings, launches = phase_examples_timed(
+        torch.device("cuda:0"), card.name_and_power_limit())
+    Path(results_path).write_text(json.dumps([readings, launches]))
+    return 0
+
+
+def examples_timed_alone() -> tuple[dict, dict]:
+    """Phase 41 run alone in a fresh process, as a user runs an example:
+    late in this process every launch costs more (1.3-1.8x the fresh
+    process's tick, with the collector's heap frozen or not). Its lines
+    are printed when it ends; raises if it fails."""
+    import subprocess
+
+    work = ROOT / "quadruped_tpu_torch" / "_build" / "timed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with open(work / "out", "w") as out, open(work / "err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--timed",
+             str(work / "results.json")], cwd=ROOT, stdout=out, stderr=err)
+        try:
+            rc = proc.wait(timeout=CHECK_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print((work / "out").read_text(), end="", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"examples:timed exit {rc}:\n"
+                           + (work / "err").read_text()[-4000:])
+    readings, launches = json.loads((work / "results.json").read_text())
+    shutil.rmtree(work, ignore_errors=True)
+    return readings, launches
 
 
 def main() -> int:
@@ -2707,10 +2926,16 @@ def main() -> int:
 
     # The check phases (4, 9, the cross-simulator check of 11, 12, the walk
     # windows of 15, 19, 22-24, the per-path fleets of 35), all at once.
-    phase("checks", **check_block(dev))
+    checks_line, check_results = check_block()
+    phase("checks", **checks_line)
 
     # 36-39. The host bridge, the hil tick, distributed/.
     late = phases_bridge_hil_distributed(dev, smi)
+
+    # 41. The examples timed at B=1, and K1 at their shapes.
+    k1_examples, timed_launches = examples_timed_alone()
+    late.update(k1_examples)
+    late["launches_examples"] = dict(check_results, **timed_launches)
 
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
@@ -2812,5 +3037,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--checks"]:
-        sys.exit(main_checks(sys.argv[2].split(",")))
+        sys.exit(main_checks(sys.argv[2].split(","), sys.argv[3]))
+    if sys.argv[1:2] == ["--timed"]:
+        sys.exit(main_timed(sys.argv[2]))
     sys.exit(main())

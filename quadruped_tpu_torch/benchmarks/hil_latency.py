@@ -116,13 +116,15 @@ def obs_from_rows(rows: torch.Tensor) -> RobotObservation:
     obs_from_rows): attitude and rates from the IMU columns, joints from
     the motor columns, contact where a foot force exceeds 5 N; position
     and velocity are not measured and stay at the stand."""
-    n = rows.shape[0]
     quat = rows[:, 1:5]
     omega = rows[:, 5:8]
     r = se3.quat_to_rotmat(quat)
+    # Filled on the device: the rows are the tick's only host-to-device
+    # copy.
+    position = torch.zeros_like(omega)
+    position[:, 2] = 0.27
     return RobotObservation(
-        base_position=torch.tensor([0.0, 0.0, 0.27], dtype=rows.dtype,
-                                   device=rows.device).expand(n, 3).clone(),
+        base_position=position,
         base_rpy=se3.quat_to_rpy(quat), base_quat=quat,
         base_vel_world=torch.zeros_like(omega),
         base_omega_world=torch.einsum("bij,bj->bi", r, omega),

@@ -154,12 +154,15 @@ class Loop(NamedTuple):
 
 def build(batch: int, device=None, config: WalkConfig | None = None,
           vx=None, params: RobotParams | None = None,
-          body_height=0.27) -> Loop:
+          body_height=0.27, terrain_height: Callable | None = None,
+          foothold_adjust_fn: Callable | None = None) -> Loop:
     """The bench: B A1 robots (or `params`: one robot, or a fleet of B)
-    standing on flat ground on the whole-body sim with the walk controller
-    booted; on the card unless `device` says otherwise. vx: [B] forward
-    speeds (default 0.02 + 0.05 U); body_height: the commanded height, a
-    number or [B]."""
+    standing on flat ground (or on `terrain_height`) on the whole-body sim
+    with the walk controller booted; on the card unless `device` says
+    otherwise. vx: [B] forward speeds (default 0.02 + 0.05 U);
+    body_height: the commanded height, a number or [B];
+    foothold_adjust_fn: the walk's foothold hook (stair_hook,
+    gap_hook)."""
     device = card.resolve(device)
     params = a1_params(device) if params is None else params
     model = fb.build_model(params)
@@ -168,12 +171,14 @@ def build(batch: int, device=None, config: WalkConfig | None = None,
     if vx is None:
         vx = 0.02 + 0.05 * np.random.default_rng(0).random(batch)
     sim = wb.whole_body_init(params, batch)
-    walk = walk_init(config, params, wb.observe(params, model, sim, contact))
+    walk = walk_init(config, params, wb.observe(
+        params, model, sim, contact, terrain_height=terrain_height))
     cmd = TwistCommand.constant(vx=np.asarray(vx, np.float32),
                                 body_height=body_height, batch=batch,
                                 device=device)
     return Loop(config, params, cmd, sim, walk, np.zeros(batch, np.int64),
-                model, contact)
+                model, contact, terrain_height=terrain_height,
+                foothold_adjust_fn=foothold_adjust_fn)
 
 
 def support_mask(walk: WalkState) -> torch.Tensor:
@@ -181,10 +186,13 @@ def support_mask(walk: WalkState) -> torch.Tensor:
     return (walk.gait.leg_sub_state != SubLegState.TRUE_SWING).float()
 
 
-def run(loop: Loop, steps: int, record: bool = False):
+def run(loop: Loop, steps: int, record: bool = False,
+        on_tick: Callable | None = None):
     """Advance the loop by `steps` ticks. Returns (loop, traces): with
     `record`, per tick [B, T, ...] base positions, sub-states, contact
-    forces and joint-angle commands, else {}."""
+    forces and joint-angle commands, else {}. on_tick(k, sim, contact
+    flags), when given, sees the sim after tick k of this call (the flags
+    None on the SRB sim)."""
     sim, walk = loop.sim, loop.walk
     device = walk.prev_sub_state.device
     dt32 = np.float32(DT)
@@ -202,16 +210,18 @@ def run(loop: Loop, steps: int, record: bool = False):
             sim = srb_sim.srb_sim_step(
                 loop.params, sim, forces, stance, command.q, command.dq,
                 1.0 - torch.repeat_interleave(stance, 3, dim=-1), DT)
-            position = sim.position
+            position, flags = sim.position, None
         else:
             obs = wb.observe(loop.params, loop.model, sim, loop.contact,
                              terrain_height=loop.terrain_height)
             command, forces, walk = walk_step(loop.config, loop.params, walk,
                                               obs, loop.cmd, t, **kw)
-            sim, _ = wb.whole_body_step(loop.params, loop.model, sim,
-                                        command, loop.contact, DT,
-                                        terrain_height=loop.terrain_height)
+            sim, flags = wb.whole_body_step(
+                loop.params, loop.model, sim, command, loop.contact, DT,
+                terrain_height=loop.terrain_height)
             position = sim.fb.position
+        if on_tick is not None:
+            on_tick(i, sim, flags)
         if record:
             for key, value in (("position", position),
                                ("sub_state", walk.gait.leg_sub_state),

@@ -20,7 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -88,10 +88,11 @@ def build(batch: int, device=None, config: LocomotionConfig | None = None,
     return Loop(config, params, model, contact, cmd, sim, ctrl)
 
 
-def run(loop: Loop, steps: int):
+def run(loop: Loop, steps: int, on_tick: Callable | None = None):
     """Advance the closed loop by `steps` ticks. Returns (loop, (heights,
     vx)): the base height and world forward velocity after each tick,
-    [B, T] each."""
+    [B, T] each. on_tick(k, sim, contact flags), when given, sees the sim
+    after tick k of this call."""
     sim, ctrl = loop.sim, loop.ctrl
     b, device = sim.t.shape[0], sim.t.device
     dt32 = np.float32(DT)
@@ -102,8 +103,10 @@ def run(loop: Loop, steps: int):
                        dtype=torch.float32, device=device)
         command, _, ctrl = locomotion_step(loop.config, loop.params, ctrl,
                                            obs, loop.cmd, t)
-        sim, _ = wb.whole_body_step(loop.params, loop.model, sim, command,
-                                    loop.contact, DT)
+        sim, flags = wb.whole_body_step(loop.params, loop.model, sim,
+                                        command, loop.contact, DT)
+        if on_tick is not None:
+            on_tick(i - loop.step, sim, flags)
         s = sim.fb
         hs.append(s.position[:, 2])
         vxs.append(torch.einsum("bij,bj->bi", se3.quat_to_rotmat(s.quat),

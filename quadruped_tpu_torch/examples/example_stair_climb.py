@@ -1,0 +1,64 @@
+"""Climb an 8 cm step with the walk stack and render it to a 3-D GIF (port
+of examples/example_stair_climb.py).
+
+The statically-stable walk climbs a single 8 cm step on the 18-DoF
+whole-body sim, with `planner.foot_stepper.stair_foothold_adjust`
+coordinating the footholds (hold short of the riser, climb when the leg
+pair allows): the closed-loop capability the reference's qrFootStepper
+exists for, rendered with the terrain wireframe. The walk loop of
+`benchmarks/walk.py` with its stair terrain and hook, 40 force-QP
+iterations. No kernel of the port runs.
+
+    python -m quadruped_tpu_torch.examples.example_stair_climb [out.gif]
+        [seconds] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from quadruped_tpu_torch.benchmarks import walk as bench_walk
+from quadruped_tpu_torch.examples import common
+from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.utils import card
+
+DT = bench_walk.DT
+SECONDS = 24.0
+
+
+def build(device=None):
+    """One A1 standing before the step with the walk controller booted."""
+    device = card.resolve(device)
+    return common.terrain_loop(bench_walk.stair_terrain(),
+                               bench_walk.stair_hook(device), 40, device)
+
+
+def run(seconds: float = SECONDS, device=None) -> dict:
+    """One robot's pose after each tick: position [T, 3], rpy [T, 3], q
+    [T, 12], the contact flags [T, 4] and the legs' sub-states [T, 4],
+    with `loop`, what `build` returns advanced by the run."""
+    device = card.resolve(device)
+    return common.terrain_walk(build(device), int(seconds / DT), device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("out", nargs="?", default=common.out_path("stairs3d.gif"))
+    ap.add_argument("seconds", nargs="?", type=float, default=SECONDS)
+    common.add_device(ap)
+    args = ap.parse_args(argv)
+    device = card.resolve(args.device)
+    out = run(args.seconds, device)
+    pos = out["position"]
+    print(f"climb: x {pos[0, 0]:+.2f} -> {pos[-1, 0]:+.2f} m, "
+          f"z {pos[0, 2]:.3f} -> {pos[-1, 2]:.3f} m "
+          f"(step {bench_walk.STEP_HEIGHT} m at x={bench_walk.RISER_X})")
+    if common.have_matplotlib():
+        print(common.render3d(a1_params("cpu"), out, args.out, every=60,
+                              fps=10, terrain=bench_walk.stair_terrain()))
+    common.report(device, out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

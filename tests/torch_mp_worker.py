@@ -13,6 +13,8 @@ set by the parent; gloo on the CPU, one rank a process, one thread.
          with its warm start under the suffix _w) to `solve_cone_sp`:
          relaxed, accelerated, and warm-started accelerated; writes the
          solutions.
+  fleet: example_fleet_sweep.run for in.npz's `steps` ticks, which starts
+         the group itself; writes the rank's rows of the traces.
 """
 
 import os
@@ -66,8 +68,21 @@ def cone_problem(data, suffix=""):
                           fz_lo=t["fz_lo"], fz_hi=t["fz_hi"])
 
 
+def fleet(in_path, out_path):
+    from quadruped_tpu_torch.examples import example_fleet_sweep
+
+    out = example_fleet_sweep.run(int(np.load(in_path)["steps"]),
+                                  device="cpu")
+    np.savez(out_path, rank=runtime.process_index(), **{
+        k: out[k] for k in ("alive", "base_height_trace", "vel_trace",
+                            "first", "devices")})
+    torch.distributed.destroy_process_group()
+
+
 def main():
     mode, in_path, out_path = sys.argv[1:4]
+    if mode == "fleet":
+        return fleet(in_path, out_path)
     assert runtime.initialize_from_env("cpu"), "expected a multi-process env"
     data = np.load(in_path)
     rank = runtime.process_index()
