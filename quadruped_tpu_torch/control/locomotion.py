@@ -37,6 +37,7 @@ from quadruped_tpu_torch.gait.scheduler import (GaitConfig, GaitState,
 from quadruped_tpu_torch.planner import com_adjuster
 from quadruped_tpu_torch.robots import kinematics
 from quadruped_tpu_torch.robots.params import RobotParams, check_batch
+from quadruped_tpu_torch.utils.logging import span
 
 STANCE_KD = 3.0  # damping on stance joints (reference legCommand {0,0,0,3,tau})
 # Forward CoM offset added to the WBC body-position target.
@@ -135,83 +136,87 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
     forces_world [B, 4, 3], new state). Pass `model`
     (dynamics.floating_base.build_model) to run the WBC when
     config.use_wbc."""
-    wbc_on = config.use_wbc and model is not None
-    any_solve = None
-    if wbc_on:
-        # The WBC runs every 2nd tick, never on a tick that solves the MPC.
-        # One host check covers both: whether any scenario solves and
-        # whether any runs the WBC.
-        trot = config.mode == ControlMode.ADVANCED_TROT
-        solving = (mpc_mod.solve_mask(config.mpc, state.mpc) if trot
-                   else torch.zeros_like(state.wbc_iteration,
-                                         dtype=torch.bool))
-        do_wbc = (state.wbc_iteration % 2 == 0) & ~solving
-        any_solve, any_wbc = torch.stack([solving.any(),
-                                          do_wbc.any()]).tolist()
-    # The gait transition manager scales the command, may freeze or swap
-    # the gait clock, and pins full stance through the hold.
-    gait_cfg, gait_pre, hold, trans_state = (config.gait, state.gait, None,
-                                             state.transition)
-    if config.gait_b is not None:
-        gait_cfg, gait_pre, cmd, hold, trans_state = \
-            gt_mod.gait_transition_step(state.transition, state.gait,
-                                        config.gait, config.gait_b, cmd, t,
-                                        obs.foot_contact)
-    des = desired_state_update(state.command, cmd)
-    gait_state = gait_update(gait_cfg, gait_pre, t, obs.foot_contact)
-    if hold is not None:
-        gait_state = gt_mod.hold_stance_gait(hold, gait_state)
-    q_sw, dq_sw, swing_mask, swing_state = swing_mod.swing_step(
-        config.swing, params, gait_cfg, gait_state, state.swing, obs, des)
-    stance = stance_contact_mask(gait_state)
-    stance_joint_mask = torch.repeat_interleave(stance, 3, dim=-1)
+    with span("qtpu.ctrl"):
+        wbc_on = config.use_wbc and model is not None
+        any_solve = None
+        if wbc_on:
+            # The WBC runs every 2nd tick, never on a tick that solves the MPC.
+            # One host check covers both: whether any scenario solves and
+            # whether any runs the WBC.
+            trot = config.mode == ControlMode.ADVANCED_TROT
+            solving = (mpc_mod.solve_mask(config.mpc, state.mpc) if trot
+                       else torch.zeros_like(state.wbc_iteration,
+                                             dtype=torch.bool))
+            do_wbc = (state.wbc_iteration % 2 == 0) & ~solving
+            with span("qtpu.sync.wbc_gate"):
+                any_solve, any_wbc = torch.stack([solving.any(),
+                                                  do_wbc.any()]).tolist()
+        # The gait transition manager scales the command, may freeze or swap
+        # the gait clock, and pins full stance through the hold.
+        gait_cfg, gait_pre, hold, trans_state = (config.gait, state.gait, None,
+                                                 state.transition)
+        if config.gait_b is not None:
+            gait_cfg, gait_pre, cmd, hold, trans_state = \
+                gt_mod.gait_transition_step(state.transition, state.gait,
+                                            config.gait, config.gait_b, cmd, t,
+                                            obs.foot_contact)
+        des = desired_state_update(state.command, cmd)
+        gait_state = gait_update(gait_cfg, gait_pre, t, obs.foot_contact)
+        if hold is not None:
+            gait_state = gt_mod.hold_stance_gait(hold, gait_state)
+        q_sw, dq_sw, swing_mask, swing_state = swing_mod.swing_step(
+            config.swing, params, gait_cfg, gait_state, state.swing, obs, des)
+        stance = stance_contact_mask(gait_state)
+        stance_joint_mask = torch.repeat_interleave(stance, 3, dim=-1)
 
-    if config.mode == ControlMode.ADVANCED_TROT:
-        tau_stance, forces_world, _, mpc_state = mpc_mod.mpc_step(
-            config.mpc, params, gait_cfg, gait_state, state.mpc, obs, des,
-            foot_targets_world=swing_state.foot_target_world,
-            v_preview=v_preview, z_preview=z_preview, any_solve=any_solve)
-    else:
-        # Force-balance stance path; POSITION mode also tracks the CoM
-        # adjuster's shift.
-        fb_config = config.force_balance or stance_fb.ForceBalanceConfig()
-        des_fb = des
-        if config.mode == ControlMode.POSITION:
-            feet = kinematics.foot_positions_in_base_frame(params,
-                                                           obs.joint_angles)
-            com_shift = com_adjuster.com_position_in_base_frame(gait_state,
-                                                               feet)
-            des_fb = dataclasses.replace(des, position=torch.cat(
-                [com_shift[:, :2], des.position[:, 2:]], dim=-1))
-        forces_world = stance_fb.compute_contact_forces(
-            fb_config, params, obs, des_fb, stance)
-        tau_stance = stance_fb.stance_torques(params, obs, forces_world,
-                                              stance)
-        mpc_state = state.mpc
+        if config.mode == ControlMode.ADVANCED_TROT:
+            tau_stance, forces_world, _, mpc_state = mpc_mod.mpc_step(
+                config.mpc, params, gait_cfg, gait_state, state.mpc, obs, des,
+                foot_targets_world=swing_state.foot_target_world,
+                v_preview=v_preview, z_preview=z_preview, any_solve=any_solve)
+        else:
+            # Force-balance stance path; POSITION mode also tracks the CoM
+            # adjuster's shift.
+            fb_config = config.force_balance or stance_fb.ForceBalanceConfig()
+            des_fb = des
+            if config.mode == ControlMode.POSITION:
+                feet = kinematics.foot_positions_in_base_frame(
+                    params, obs.joint_angles)
+                com_shift = com_adjuster.com_position_in_base_frame(
+                    gait_state, feet)
+                des_fb = dataclasses.replace(des, position=torch.cat(
+                    [com_shift[:, :2], des.position[:, 2:]], dim=-1))
+            forces_world = stance_fb.compute_contact_forces(
+                fb_config, params, obs, des_fb, stance)
+            tau_stance = stance_fb.stance_torques(params, obs, forces_world,
+                                                  stance)
+            mpc_state = state.mpc
 
-    if wbc_on and any_wbc:
-        wbc_cmd = _wbc_command(mpc_state, swing_state, obs, gait_state,
-                               des.position[:, 2])
-        _, _, tau_wbc = wbc_mod.wbc_step(config.wbc or wbc_mod.WbcConfig(),
-                                         params, model, obs, wbc_cmd)
-        tau_stance = torch.where(do_wbc[:, None] & (stance_joint_mask > 0.5),
-                                 tau_wbc, tau_stance)
+        if wbc_on and any_wbc:
+            wbc_cmd = _wbc_command(mpc_state, swing_state, obs, gait_state,
+                                   des.position[:, 2])
+            _, _, tau_wbc = wbc_mod.wbc_step(
+                config.wbc or wbc_mod.WbcConfig(), params, model, obs,
+                wbc_cmd)
+            tau_stance = torch.where(
+                do_wbc[:, None] & (stance_joint_mask > 0.5), tau_wbc,
+                tau_stance)
 
-    sw = swing_mask > 0.5
-    zero = torch.zeros_like(q_sw)
-    tau = torch.where(sw, zero, tau_stance)
-    if config.mode == ControlMode.ADVANCED_TROT:
-        tau = tau + torch.as_tensor(_HIP_COMP, dtype=torch.float32,
-                                    device=q_sw.device)
-    command = HybridCommand(
-        q=torch.where(sw, q_sw, zero),
-        kp=torch.where(sw, params.motor_kp, zero),
-        dq=torch.where(sw, dq_sw, zero),
-        kd=torch.where(sw, params.motor_kd, STANCE_KD * stance_joint_mask),
-        tau=tau,
-    )
-    new_state = LocomotionState(gait=gait_state, mpc=mpc_state,
-                                swing=swing_state, command=des,
-                                wbc_iteration=state.wbc_iteration + 1,
-                                transition=trans_state)
-    return command, forces_world, new_state
+        sw = swing_mask > 0.5
+        zero = torch.zeros_like(q_sw)
+        tau = torch.where(sw, zero, tau_stance)
+        if config.mode == ControlMode.ADVANCED_TROT:
+            tau = tau + torch.as_tensor(_HIP_COMP, dtype=torch.float32,
+                                        device=q_sw.device)
+        command = HybridCommand(
+            q=torch.where(sw, q_sw, zero),
+            kp=torch.where(sw, params.motor_kp, zero),
+            dq=torch.where(sw, dq_sw, zero),
+            kd=torch.where(sw, params.motor_kd, STANCE_KD * stance_joint_mask),
+            tau=tau,
+        )
+        new_state = LocomotionState(gait=gait_state, mpc=mpc_state,
+                                    swing=swing_state, command=des,
+                                    wbc_iteration=state.wbc_iteration + 1,
+                                    transition=trans_state)
+        return command, forces_world, new_state

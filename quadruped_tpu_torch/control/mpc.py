@@ -29,6 +29,7 @@ from quadruped_tpu_torch.robots import kinematics
 from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 from quadruped_tpu_torch.solvers import condense, cone_qp
 from quadruped_tpu_torch.utils import card, tree
+from quadruped_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass
@@ -208,44 +209,45 @@ def mpc_problem(config: MpcConfig, params: RobotParams, state: MpcState,
     """The cone QP of one MPC update for every scenario. Returns (state
     with its desired position re-anchored, ConeQP, pinned force triples
     [B, 4G] as 0/1)."""
-    h = config.horizon
-    r_mat = obs.rot_body_to_world
-    b = r_mat.shape[0]
-    foot_base = kinematics.foot_positions_in_base_frame(params,
-                                                        obs.joint_angles)
-    r_feet = torch.einsum(
-        "bij,blj->bli", r_mat,
-        foot_base - per_scenario(params, params.com_offset, 3))
+    with span("qtpu.mpc.build"):
+        h = config.horizon
+        r_mat = obs.rot_body_to_world
+        b = r_mat.shape[0]
+        foot_base = kinematics.foot_positions_in_base_frame(params,
+                                                            obs.joint_angles)
+        r_feet = torch.einsum(
+            "bij,blj->bli", r_mat,
+            foot_base - per_scenario(params, params.com_offset, 3))
 
-    # Re-anchor the stored desired position to +/-0.1 m of the actual.
-    start_xy = torch.clamp(state.pos_des_world[:, :2],
-                           obs.base_position[:, :2] - 0.1,
-                           obs.base_position[:, :2] + 0.1)
-    state = dataclasses.replace(state, pos_des_world=torch.cat(
-        [start_xy, state.pos_des_world[:, 2:]], dim=-1))
+        # Re-anchor the stored desired position to +/-0.1 m of the actual.
+        start_xy = torch.clamp(state.pos_des_world[:, :2],
+                               obs.base_position[:, :2] - 0.1,
+                               obs.base_position[:, :2] + 0.1)
+        state = dataclasses.replace(state, pos_des_world=torch.cat(
+            [start_xy, state.pos_des_world[:, 2:]], dim=-1))
 
-    x0 = srb.srb_initial_state(obs.base_rpy, obs.base_position,
-                               obs.base_omega_world, obs.base_vel_world)
-    x_des = _desired_trajectory(config, state, obs, des, rpy_comp,
-                                body_height, v_preview, z_preview)
-    a_ct, b_ct = srb.srb_continuous(r_mat, params.total_inertia,
-                                    params.total_mass, r_feet)
-    ad, bd = srb.srb_discretize(a_ct, b_ct, config.dt_mpc)
-    weights = torch.as_tensor(config.state_weights, dtype=torch.float32,
-                              device=r_mat.device)
-    p_cost, q_cost = condense.condense_cost_structured(
-        a_ct, bd, ad, x0, x_des, weights, config.force_weight, h,
-        config.dt_mpc)
-    fz_hi = (contact_table * per_scenario(params, params.max_force, 3)
-             ).reshape(b, h * 4)
-    if config.move_block:
-        groups, n_g = condense.move_block_groups(h, *config.move_block)
-        p_cost, q_cost, fz_hi = condense.reduce_move_blocking(
-            p_cost, q_cost, fz_hi, groups, n_g, h)
-    prob = cone_qp.ConeQP(p=p_cost, q=q_cost,
-                          mu=params.friction_coef.expand(b),
-                          fz_lo=torch.zeros_like(fz_hi), fz_hi=fz_hi)
-    return state, prob, (fz_hi < 1e-6).float()
+        x0 = srb.srb_initial_state(obs.base_rpy, obs.base_position,
+                                   obs.base_omega_world, obs.base_vel_world)
+        x_des = _desired_trajectory(config, state, obs, des, rpy_comp,
+                                    body_height, v_preview, z_preview)
+        a_ct, b_ct = srb.srb_continuous(r_mat, params.total_inertia,
+                                        params.total_mass, r_feet)
+        ad, bd = srb.srb_discretize(a_ct, b_ct, config.dt_mpc)
+        weights = torch.as_tensor(config.state_weights, dtype=torch.float32,
+                                  device=r_mat.device)
+        p_cost, q_cost = condense.condense_cost_structured(
+            a_ct, bd, ad, x0, x_des, weights, config.force_weight, h,
+            config.dt_mpc)
+        fz_hi = (contact_table * per_scenario(params, params.max_force, 3)
+                 ).reshape(b, h * 4)
+        if config.move_block:
+            groups, n_g = condense.move_block_groups(h, *config.move_block)
+            p_cost, q_cost, fz_hi = condense.reduce_move_blocking(
+                p_cost, q_cost, fz_hi, groups, n_g, h)
+        prob = cone_qp.ConeQP(p=p_cost, q=q_cost,
+                              mu=params.friction_coef.expand(b),
+                              fz_lo=torch.zeros_like(fz_hi), fz_hi=fz_hi)
+        return state, prob, (fz_hi < 1e-6).float()
 
 
 def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
@@ -258,29 +260,32 @@ def mpc_solve(config: MpcConfig, params: RobotParams, state: MpcState,
               v_preview: torch.Tensor | None = None,
               z_preview: torch.Tensor | None = None) -> MpcState:
     """One full MPC problem build + solve for every scenario."""
-    state, prob, pin_new = mpc_problem(config, params, state, obs, des,
-                                       contact_table, rpy_comp, body_height,
-                                       v_preview, z_preview)
-    b = prob.q.shape[0]
-    rho = cone_qp.RHO_CONE
-    if config.qp_rho is not None and x0_warm is None:
-        rho = config.qp_rho
-    x0 = state.warm_primal if x0_warm is None else x0_warm
-    y0 = state.warm_dual if y0_warm is None else y0_warm
-    if config.qp_warm_shift and not config.move_block and x0_warm is None:
-        # Flip-aware warm start on the per-tick path (the cold boot passes
-        # its own gravity-split start).
-        x0, y0 = cone_qp.shift_warm_start(x0, y0, state.warm_pinned, pin_new)
-    sol = cone_qp.solve(
-        prob, iters=config.qp_iters if iters is None else iters, rho=rho,
-        x0=x0, y0=y0, alpha=config.qp_alpha if alpha is None else alpha,
-        accel_restart=(config.qp_accel_restart if accel_restart is None
-                       else accel_restart))
-    # First-step forces, world frame: the first step is its own group.
-    forces = sol.x[:, :12].reshape(b, 4, 3)
-    return dataclasses.replace(state, forces_world=forces,
-                               warm_primal=sol.x, warm_dual=sol.y,
-                               warm_pinned=pin_new)
+    with span("qtpu.mpc.solve"):
+        state, prob, pin_new = mpc_problem(
+            config, params, state, obs, des, contact_table, rpy_comp,
+            body_height, v_preview, z_preview)
+        b = prob.q.shape[0]
+        rho = cone_qp.RHO_CONE
+        if config.qp_rho is not None and x0_warm is None:
+            rho = config.qp_rho
+        x0 = state.warm_primal if x0_warm is None else x0_warm
+        y0 = state.warm_dual if y0_warm is None else y0_warm
+        if config.qp_warm_shift and not config.move_block \
+                and x0_warm is None:
+            # Flip-aware warm start on the per-tick path (the cold boot
+            # passes its own gravity-split start).
+            x0, y0 = cone_qp.shift_warm_start(x0, y0, state.warm_pinned,
+                                              pin_new)
+        sol = cone_qp.solve(
+            prob, iters=config.qp_iters if iters is None else iters, rho=rho,
+            x0=x0, y0=y0, alpha=config.qp_alpha if alpha is None else alpha,
+            accel_restart=(config.qp_accel_restart if accel_restart is None
+                           else accel_restart))
+        # First-step forces, world frame: the first step is its own group.
+        forces = sol.x[:, :12].reshape(b, 4, 3)
+        return dataclasses.replace(state, forces_world=forces,
+                                   warm_primal=sol.x, warm_dual=sol.y,
+                                   warm_pinned=pin_new)
 
 
 def _contact_table(config: MpcConfig, gait_config: GaitConfig,
@@ -385,75 +390,80 @@ def mpc_step(config: MpcConfig, params: RobotParams,
     `vmap` does in the JAX package. Whether any does is one host check of
     `solve_mask`, or `any_solve` when the caller made that check.
     """
-    state = setup_command(config, state, obs, des)
-    body_height, pitch_comp = height_and_pitch_compensation(
-        gait_state, des, des.position[:, 2])
-    rpy_comp = torch.stack([torch.zeros_like(pitch_comp), pitch_comp], -1)
+    with span("qtpu.ctrl.mpc"):
+        state = setup_command(config, state, obs, des)
+        body_height, pitch_comp = height_and_pitch_compensation(
+            gait_state, des, des.position[:, 2])
+        rpy_comp = torch.stack([torch.zeros_like(pitch_comp), pitch_comp], -1)
 
-    r = obs.rot_body_to_world
-    v_des_world = _v_des_world(state, r)
-    v_des_world[:, 2] = 0.0
-    pos_des = state.pos_des_world + config.control_dt * v_des_world
-    z_blend = 0.99 * (body_height + (body_height - obs.base_position[:, 2])) \
-        + 0.01 * state.pos_des_world[:, 2]
-    pos_des[:, 2] = z_blend
+        r = obs.rot_body_to_world
+        v_des_world = _v_des_world(state, r)
+        v_des_world[:, 2] = 0.0
+        pos_des = state.pos_des_world + config.control_dt * v_des_world
+        z_blend = 0.99 * (body_height
+                          + (body_height - obs.base_position[:, 2])) \
+            + 0.01 * state.pos_des_world[:, 2]
+        pos_des[:, 2] = z_blend
 
-    any_first_swing = torch.amax(gait_state.first_swing, dim=-1) > 0.5
-    base_planar = torch.stack([obs.base_position[:, 0],
-                               obs.base_position[:, 1],
-                               obs.base_vel_world[:, 0],
-                               obs.base_vel_world[:, 1]], -1)
-    first_swing_base = torch.where(any_first_swing[:, None], base_planar,
-                                   state.first_swing_base)
+        any_first_swing = torch.amax(gait_state.first_swing, dim=-1) > 0.5
+        base_planar = torch.stack([obs.base_position[:, 0],
+                                   obs.base_position[:, 1],
+                                   obs.base_vel_world[:, 0],
+                                   obs.base_vel_world[:, 1]], -1)
+        first_swing_base = torch.where(any_first_swing[:, None], base_planar,
+                                       state.first_swing_base)
 
-    if foot_targets_world is not None:
-        # CoM destination: mean of planned footholds (swing legs) and
-        # current feet (stance legs), interpolated by the front legs' phase.
-        foot_base = kinematics.foot_positions_in_base_frame(
-            params, obs.joint_angles)
-        foot_world = torch.einsum("bij,blj->bli", r, foot_base) \
-            + obs.base_position[:, None, :]
-        in_contact = (gait_state.leg_state != LegState.SWING)[:, :, None]
-        com_dest = torch.mean(torch.where(in_contact, foot_world,
-                                          foot_targets_world), dim=1)
-        duty = gait_config.duty_factor[..., 0]
-        p0 = gait_state.phase_in_full_cycle[:, 0]
-        p1 = gait_state.phase_in_full_cycle[:, 1]
-        leg0_sw = gait_state.desired_leg_state[:, 0] == LegState.SWING
-        leg1_sw = gait_state.desired_leg_state[:, 1] == LegState.SWING
-        t_par = torch.where(
-            leg0_sw, p0 - duty,
-            torch.where(leg1_sw, p1 - duty,
-                        torch.where(p0 < p1, p0 + (1 - duty),
-                                    p1 + (1 - duty))))
-        t_par = torch.clamp(t_par * 2.0, 0.0, 1.0)[:, None]
-        pos_des[:, :2] = (1 - t_par) * first_swing_base[:, :2] \
-            + t_par * com_dest[:, :2]
+        if foot_targets_world is not None:
+            # CoM destination: mean of planned footholds (swing legs) and
+            # current feet (stance legs), interpolated by the front legs'
+            # phase.
+            foot_base = kinematics.foot_positions_in_base_frame(
+                params, obs.joint_angles)
+            foot_world = torch.einsum("bij,blj->bli", r, foot_base) \
+                + obs.base_position[:, None, :]
+            in_contact = (gait_state.leg_state != LegState.SWING)[:, :, None]
+            com_dest = torch.mean(torch.where(in_contact, foot_world,
+                                              foot_targets_world), dim=1)
+            duty = gait_config.duty_factor[..., 0]
+            p0 = gait_state.phase_in_full_cycle[:, 0]
+            p1 = gait_state.phase_in_full_cycle[:, 1]
+            leg0_sw = gait_state.desired_leg_state[:, 0] == LegState.SWING
+            leg1_sw = gait_state.desired_leg_state[:, 1] == LegState.SWING
+            t_par = torch.where(
+                leg0_sw, p0 - duty,
+                torch.where(leg1_sw, p1 - duty,
+                            torch.where(p0 < p1, p0 + (1 - duty),
+                                        p1 + (1 - duty))))
+            t_par = torch.clamp(t_par * 2.0, 0.0, 1.0)[:, None]
+            pos_des[:, :2] = (1 - t_par) * first_swing_base[:, :2] \
+                + t_par * com_dest[:, :2]
 
-    state = dataclasses.replace(state, pos_des_world=pos_des,
-                                first_swing_base=first_swing_base)
-    table, stance_now = _contact_table(config, gait_config, gait_state)
+        state = dataclasses.replace(state, pos_des_world=pos_des,
+                                    first_swing_base=first_swing_base)
+        table, stance_now = _contact_table(config, gait_config, gait_state)
 
-    def do_solve(s):
-        return mpc_solve(config, params, s, obs, des, table, rpy_comp,
-                         body_height, v_preview=v_preview,
-                         z_preview=z_preview)
+        def do_solve(s):
+            return mpc_solve(config, params, s, obs, des, table, rpy_comp,
+                             body_height, v_preview=v_preview,
+                             z_preview=z_preview)
 
-    should_solve = solve_mask(config, state)
-    if config.solve_mode == "always":
-        state = do_solve(state)
-    elif config.solve_mode == "cadence":
-        if any_solve is None:
-            any_solve = bool(should_solve.any())
-        if any_solve:
-            state = tree.where(should_solve, do_solve(state), state)
+        should_solve = solve_mask(config, state)
+        if config.solve_mode == "always":
+            state = do_solve(state)
+        elif config.solve_mode == "cadence":
+            if any_solve is None:
+                with span("qtpu.sync.solve_gate"):
+                    any_solve = bool(should_solve.any())
+            if any_solve:
+                state = tree.where(should_solve, do_solve(state), state)
 
-    # tau = -J^T R^T f per stance leg.
-    f_body = torch.einsum("bji,blj->bli", r, state.forces_world)
-    tau = kinematics.map_contact_forces_to_torques(params, obs.joint_angles,
-                                                   -f_body)
-    limit = per_scenario(params, params.torque_limit, 2)
-    tau = torch.clamp(tau, -limit, limit)
-    tau = tau * torch.repeat_interleave(stance_now.to(tau.dtype), 3, dim=-1)
-    state = dataclasses.replace(state, iteration=state.iteration + 1)
-    return tau, state.forces_world, should_solve, state
+        # tau = -J^T R^T f per stance leg.
+        f_body = torch.einsum("bji,blj->bli", r, state.forces_world)
+        tau = kinematics.map_contact_forces_to_torques(
+            params, obs.joint_angles, -f_body)
+        limit = per_scenario(params, params.torque_limit, 2)
+        tau = torch.clamp(tau, -limit, limit)
+        tau = tau * torch.repeat_interleave(stance_now.to(tau.dtype), 3,
+                                            dim=-1)
+        state = dataclasses.replace(state, iteration=state.iteration + 1)
+        return tau, state.forces_world, should_solve, state

@@ -21,6 +21,7 @@ from quadruped_tpu_torch.core import se3, splines
 from quadruped_tpu_torch.gait.scheduler import GaitConfig, GaitState, LegState
 from quadruped_tpu_torch.robots import kinematics
 from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
+from quadruped_tpu_torch.utils.logging import span
 
 
 class SplineType:
@@ -192,64 +193,68 @@ def swing_step(config: SwingConfig, params: RobotParams,
     Returns (q_des [B, 12], dq_des [B, 12], swing_joint_mask [B, 12],
     new state).
     """
-    r_mat = obs.rot_body_to_world
-    foot_base = kinematics.foot_positions_in_base_frame(params,
-                                                        obs.joint_angles)
-    foot_world = _rotate(r_mat, foot_base)
+    with span("qtpu.ctrl.swing"):
+        r_mat = obs.rot_body_to_world
+        foot_base = kinematics.foot_positions_in_base_frame(params,
+                                                            obs.joint_angles)
+        foot_world = _rotate(r_mat, foot_base)
 
-    first = gait_state.first_swing[:, :, None] > 0.5
-    liftoff_base = torch.where(first, foot_base, state.liftoff_pos_base)
-    liftoff_world = torch.where(first, foot_world, state.liftoff_pos_world)
+        first = gait_state.first_swing[:, :, None] > 0.5
+        liftoff_base = torch.where(first, foot_base, state.liftoff_pos_base)
+        liftoff_world = torch.where(first, foot_world, state.liftoff_pos_world)
 
-    if config.mode == ControlMode.ADVANCED_TROT:
-        target_base = heuristic_foothold_advanced(config, params, gait_config,
-                                                  gait_state, obs, des)
-    else:
-        target_base = raibert_foothold_velocity_mode(config, params,
-                                                     gait_config, obs, des)
-    # Touchdown-wait probe: a blocked leg creeps toward the hip line in y
-    # and 2 cm down, evaluated at the spline end.
-    blocked = gait_state.allow_switch < 0.5
-    hip_def = params.default_hip_position
-    rel = _rotate(r_mat, foot_base - hip_def)
-    y_rel = rel[..., 1]
-    y_rel = torch.where(y_rel > 0.01, y_rel - 0.005,
-                        torch.where(y_rel < -0.01, y_rel + 0.005, y_rel))
-    rel = torch.stack([rel[..., 0], y_rel, rel[..., 2] - 0.02], dim=-1)
-    probe_base = _rotate_t(r_mat, rel) + hip_def
+        if config.mode == ControlMode.ADVANCED_TROT:
+            target_base = heuristic_foothold_advanced(
+                config, params, gait_config, gait_state, obs, des)
+        else:
+            target_base = raibert_foothold_velocity_mode(
+                config, params, gait_config, obs, des)
+        # Touchdown-wait probe: a blocked leg creeps toward the hip line in y
+        # and 2 cm down, evaluated at the spline end.
+        blocked = gait_state.allow_switch < 0.5
+        hip_def = params.default_hip_position
+        rel = _rotate(r_mat, foot_base - hip_def)
+        y_rel = rel[..., 1]
+        y_rel = torch.where(y_rel > 0.01, y_rel - 0.005,
+                            torch.where(y_rel < -0.01, y_rel + 0.005, y_rel))
+        rel = torch.stack([rel[..., 0], y_rel, rel[..., 2] - 0.02], dim=-1)
+        probe_base = _rotate_t(r_mat, rel) + hip_def
 
-    swinging = (gait_state.leg_state == LegState.SWING)[:, :, None]
-    target_base = torch.where(swinging, target_base, state.foot_target_base)
-    target_base = torch.where(blocked[:, :, None], probe_base, target_base)
-    target_world = _rotate(r_mat, target_base) + obs.base_position[:, None, :]
-    if config.foothold_adjust_fn is not None:
-        target_world = config.foothold_adjust_fn(target_world)
-        target_base = _rotate_t(r_mat,
-                                target_world - obs.base_position[:, None, :])
+        swinging = (gait_state.leg_state == LegState.SWING)[:, :, None]
+        target_base = torch.where(swinging, target_base,
+                                  state.foot_target_base)
+        target_base = torch.where(blocked[:, :, None], probe_base,
+                                  target_base)
+        target_world = _rotate(r_mat, target_base) \
+            + obs.base_position[:, None, :]
+        if config.foothold_adjust_fn is not None:
+            target_world = config.foothold_adjust_fn(target_world)
+            target_base = _rotate_t(
+                r_mat, target_world - obs.base_position[:, None, :])
 
-    phi = torch.where(blocked, 1.0, gait_state.normalized_phase)
-    target_rot = _rotate(r_mat, target_base)
-    pos_w, vel_w = _SWING_FNS[config.spline_type](
-        liftoff_world, target_rot, config.swing_height, phi)
-    pos_base = _rotate_t(r_mat, pos_w)
-    vel_base = _rotate_t(r_mat, vel_w) \
-        / torch.clamp(gait_config.swing_duration, min=1e-4)[..., None]
+        phi = torch.where(blocked, 1.0, gait_state.normalized_phase)
+        target_rot = _rotate(r_mat, target_base)
+        pos_w, vel_w = _SWING_FNS[config.spline_type](
+            liftoff_world, target_rot, config.swing_height, phi)
+        pos_base = _rotate_t(r_mat, pos_w)
+        vel_base = _rotate_t(r_mat, vel_w) \
+            / torch.clamp(gait_config.swing_duration, min=1e-4)[..., None]
 
-    q_des = kinematics.joint_angles_from_foot_positions(params, pos_base)
-    jac = kinematics.all_leg_jacobians(params, q_des)
-    dq_des = kinematics.damped_jacobian_solve(jac, vel_base)
-    dq_des = dq_des.reshape(q_des.shape)
+        q_des = kinematics.joint_angles_from_foot_positions(params, pos_base)
+        jac = kinematics.all_leg_jacobians(params, q_des)
+        dq_des = kinematics.damped_jacobian_solve(jac, vel_base)
+        dq_des = dq_des.reshape(q_des.shape)
 
-    ls = gait_state.leg_state
-    swing_leg = ((ls == LegState.SWING) | (ls == LegState.USERDEFINED_SWING)
-                 | blocked)
-    joint_mask = torch.repeat_interleave(swing_leg.float(), 3, dim=-1)
+        ls = gait_state.leg_state
+        swing_leg = ((ls == LegState.SWING)
+                     | (ls == LegState.USERDEFINED_SWING) | blocked)
+        joint_mask = torch.repeat_interleave(swing_leg.float(), 3, dim=-1)
 
-    new_state = SwingState(
-        liftoff_pos_base=liftoff_base, liftoff_pos_world=liftoff_world,
-        foot_target_base=target_base, foot_target_world=target_world,
-        wbc_pfoot_des=pos_w + obs.base_position[:, None, :],
-        wbc_vfoot_des=obs.base_vel_world[:, None, :]
-        + _rotate(r_mat, vel_base),
-        wbc_afoot_des=torch.zeros_like(pos_w))
-    return q_des, dq_des, joint_mask, new_state
+        new_state = SwingState(
+            liftoff_pos_base=liftoff_base, liftoff_pos_world=liftoff_world,
+            foot_target_base=target_base, foot_target_world=target_world,
+            wbc_pfoot_des=pos_w + obs.base_position[:, None, :],
+            wbc_vfoot_des=obs.base_vel_world[:, None, :]
+            + _rotate(r_mat, vel_base),
+            wbc_afoot_des=torch.zeros_like(pos_w))
+        return q_des, dq_des, joint_mask, new_state

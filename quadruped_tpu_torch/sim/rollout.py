@@ -33,6 +33,7 @@ from quadruped_tpu_torch.gait.scheduler import stance_contact_mask
 from quadruped_tpu_torch.robots.params import RobotParams
 from quadruped_tpu_torch.sim import srb_sim
 from quadruped_tpu_torch.utils import tree
+from quadruped_tpu_torch.utils.logging import span
 
 
 class RolloutResult(NamedTuple):
@@ -87,34 +88,35 @@ def rollout_segment(config: LocomotionConfig, params: RobotParams,
                     cmd: TwistCommand, carry: RolloutCarry, steps: int,
                     control_dt: float = 0.002):
     """Advance a rollout by `steps` ticks; returns (new carry, result)."""
-    sim, ctrl, dead = carry.sim, carry.ctrl, carry.dead
-    b, device = sim.t.shape[0], sim.t.device
-    hs, vs, fs, taus = [], [], [], []
-    dt32 = np.float32(control_dt)
-    model = fb.build_model(params) if config.use_wbc else None
-    for i in range(carry.step, carry.step + steps):
-        t = tick_time(np.float32(i + 1) * dt32, b, device)
-        obs = srb_sim.observe(params, sim, stance_contact_mask(ctrl.gait))
-        command, forces, ctrl = locomotion_step(config, params, ctrl, obs,
-                                                cmd, t, model=model)
-        stance = stance_contact_mask(ctrl.gait)
-        sim_new = srb_sim.srb_sim_step(
-            params, sim, forces, stance, command.q, command.dq,
-            1.0 - torch.repeat_interleave(stance, 3, dim=-1), control_dt)
-        dead = torch.maximum(dead, _tip_over(sim_new))
-        sim = tree.where(dead > 0.5, sim, sim_new)
-        hs.append(sim.position[:, 2])
-        vs.append(sim.vel_world)
-        fs.append(forces)
-        taus.append(command.tau)
-    new_carry = RolloutCarry(sim=sim, ctrl=ctrl, dead=dead,
-                             step=carry.step + steps)
-    result = RolloutResult(sim=sim, control=ctrl, alive=1.0 - dead,
-                           base_height_trace=torch.stack(hs, 1),
-                           vel_trace=torch.stack(vs, 1),
-                           forces_trace=torch.stack(fs, 1),
-                           tau_trace=torch.stack(taus, 1))
-    return new_carry, result
+    with span("qtpu.rollout"):
+        sim, ctrl, dead = carry.sim, carry.ctrl, carry.dead
+        b, device = sim.t.shape[0], sim.t.device
+        hs, vs, fs, taus = [], [], [], []
+        dt32 = np.float32(control_dt)
+        model = fb.build_model(params) if config.use_wbc else None
+        for i in range(carry.step, carry.step + steps):
+            t = tick_time(np.float32(i + 1) * dt32, b, device)
+            obs = srb_sim.observe(params, sim, stance_contact_mask(ctrl.gait))
+            command, forces, ctrl = locomotion_step(config, params, ctrl, obs,
+                                                    cmd, t, model=model)
+            stance = stance_contact_mask(ctrl.gait)
+            sim_new = srb_sim.srb_sim_step(
+                params, sim, forces, stance, command.q, command.dq,
+                1.0 - torch.repeat_interleave(stance, 3, dim=-1), control_dt)
+            dead = torch.maximum(dead, _tip_over(sim_new))
+            sim = tree.where(dead > 0.5, sim, sim_new)
+            hs.append(sim.position[:, 2])
+            vs.append(sim.vel_world)
+            fs.append(forces)
+            taus.append(command.tau)
+        new_carry = RolloutCarry(sim=sim, ctrl=ctrl, dead=dead,
+                                 step=carry.step + steps)
+        result = RolloutResult(sim=sim, control=ctrl, alive=1.0 - dead,
+                               base_height_trace=torch.stack(hs, 1),
+                               vel_trace=torch.stack(vs, 1),
+                               forces_trace=torch.stack(fs, 1),
+                               tau_trace=torch.stack(taus, 1))
+        return new_carry, result
 
 
 def rollout(config: LocomotionConfig, params: RobotParams,

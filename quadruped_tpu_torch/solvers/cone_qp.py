@@ -37,6 +37,7 @@ import torch
 from quadruped_tpu_torch.solvers.fused_admm import (_apply_a, _apply_at,
                                                     fused_admm)
 from quadruped_tpu_torch.solvers.fused_full_solve import fused_full_solve
+from quadruped_tpu_torch.utils.logging import span
 
 SIGMA = 1e-6
 ALPHA = 1.6
@@ -319,36 +320,41 @@ def admm_operands(prob: ConeQP, rho: float, sigma: float,
     """Equilibrate, build M = gamma d P d + sigma I + blockdiag(A^T rho A)
     and lay the problem out as the ADMM kernels take it (warm start scaled
     in). Returns (M [B, n, n], AdmmInputs with m_inv None)."""
-    b, n, _ = prob.p.shape
-    t = n // 3
-    dtype, device = prob.p.dtype, prob.p.device
-    q_s, d, d_t, gamma, fz_lo, fz_hi = _equilibrate_scales(prob)
-    mu = prob.mu.expand(b).contiguous()
-    pattern = cone_pattern(mu)                                  # [B, 5, 3]
+    with span("qtpu.qp.operands"):
+        b, n, _ = prob.p.shape
+        t = n // 3
+        dtype, device = prob.p.dtype, prob.p.device
+        q_s, d, d_t, gamma, fz_lo, fz_hi = _equilibrate_scales(prob)
+        mu = prob.mu.expand(b).contiguous()
+        pattern = cone_pattern(mu)                                  # [B, 5, 3]
 
-    # Per-row rho: swing-pinned triples (fz_hi ~ fz_lo) get 100x rho on
-    # their fz row (OSQP-style near-equality rows).
-    pinned = ((fz_hi - fz_lo) < 1e-6)[..., None]                # [B, T, 1]
-    row_template = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype,
-                                device=device)
-    rho_rows = rho * (1.0 + 99.0 * pinned * row_template)       # [B, T, 5]
-    ata = torch.einsum("bir,btr,brj->btij", pattern.transpose(-1, -2),
-                       rho_rows, pattern)
-    eye_t = torch.eye(t, dtype=dtype, device=device)
-    scale = gamma[:, None, None] * d[:, :, None] * d[:, None, :]
-    m_mat = scale * prob.p + sigma * torch.eye(n, dtype=dtype, device=device) \
-        + torch.einsum("btij,tu->btiuj", ata, eye_t).reshape(b, n, n)
+        # Per-row rho: swing-pinned triples (fz_hi ~ fz_lo) get 100x rho on
+        # their fz row (OSQP-style near-equality rows).
+        pinned = ((fz_hi - fz_lo) < 1e-6)[..., None]                # [B, T, 1]
+        row_template = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype,
+                                    device=device)
+        rho_rows = rho * (1.0 + 99.0 * pinned * row_template)       # [B, T, 5]
+        ata = torch.einsum("bir,btr,brj->btij", pattern.transpose(-1, -2),
+                           rho_rows, pattern)
+        eye_t = torch.eye(t, dtype=dtype, device=device)
+        scale = gamma[:, None, None] * d[:, :, None] * d[:, None, :]
+        m_mat = scale * prob.p \
+            + sigma * torch.eye(n, dtype=dtype, device=device) \
+            + torch.einsum("btij,tu->btiuj", ata, eye_t).reshape(b, n, n)
 
-    zeros4 = torch.zeros(b, t, 4, dtype=dtype, device=device)
-    lo = torch.cat([zeros4, fz_lo[..., None]], dim=-1).reshape(b, 5 * t)
-    hi = torch.cat([zeros4 + BIG, fz_hi[..., None]], dim=-1).reshape(b, 5 * t)
-    x_init = torch.zeros_like(q_s) if x0 is None else x0 / d
-    y_init = (torch.zeros(b, 5 * t, dtype=dtype, device=device) if y0 is None
-              else (y0 * gamma[:, None, None]).reshape(b, 5 * t))
-    return m_mat, AdmmInputs(m_inv=None, q=q_s, mu=mu, lo=lo, hi=hi,
-                             rho=rho_rows.reshape(b, 5 * t).contiguous(),
-                             x0=x_init, y0=y_init, d=d, gamma=gamma,
-                             d_t=d_t, pinned=pinned[..., 0].to(dtype))
+        zeros4 = torch.zeros(b, t, 4, dtype=dtype, device=device)
+        lo = torch.cat([zeros4, fz_lo[..., None]],
+                       dim=-1).reshape(b, 5 * t)
+        hi = torch.cat([zeros4 + BIG, fz_hi[..., None]],
+                       dim=-1).reshape(b, 5 * t)
+        x_init = torch.zeros_like(q_s) if x0 is None else x0 / d
+        y_init = (torch.zeros(b, 5 * t, dtype=dtype, device=device)
+                  if y0 is None
+                  else (y0 * gamma[:, None, None]).reshape(b, 5 * t))
+        return m_mat, AdmmInputs(m_inv=None, q=q_s, mu=mu, lo=lo, hi=hi,
+                                 rho=rho_rows.reshape(b, 5 * t).contiguous(),
+                                 x0=x_init, y0=y_init, d=d, gamma=gamma,
+                                 d_t=d_t, pinned=pinned[..., 0].to(dtype))
 
 
 def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
@@ -364,13 +370,14 @@ def admm_inputs(prob: ConeQP, *, rho: float = RHO_CONE, sigma: float = SIGMA,
     float32 ones; with `seed_rescue` its diverged scenarios get the cold
     `ns_iters`-step inverse)."""
     m_mat, inp = admm_operands(prob, rho, sigma, x0, y0)
-    if inv_carry is None:
-        m_inv = newton_schulz_inverse(m_mat, ns_iters, ns_f32_polish)
-    else:
-        m_inv = seeded_inverse(m_mat, inv_carry, inp.d_t, inp.gamma,
-                               inp.pinned, rho, bf16_iters=seed_bf16_iters,
-                               f32_polish=ns_f32_polish,
-                               rescue_iters=ns_iters if seed_rescue else 0)
+    with span("qtpu.qp.inverse"):
+        if inv_carry is None:
+            m_inv = newton_schulz_inverse(m_mat, ns_iters, ns_f32_polish)
+        else:
+            m_inv = seeded_inverse(
+                m_mat, inv_carry, inp.d_t, inp.gamma, inp.pinned, rho,
+                bf16_iters=seed_bf16_iters, f32_polish=ns_f32_polish,
+                rescue_iters=ns_iters if seed_rescue else 0)
     return inp._replace(m_inv=m_inv)
 
 
@@ -381,21 +388,22 @@ def bf16_head(inp: AdmmInputs, iters: int, sigma: float, alpha: float):
     As in JAX: rhs goes in as a hi / lo pair of bf16 columns, both through
     one product with float32 sums; the mat-vec is M^{-1} rhs, as in the
     `fused_admm` loop that continues from it."""
-    m_bf = _bf16(inp.m_inv)
-    x, y = inp.x0, inp.y0
-    z = torch.clamp(_apply_a(x, inp.mu), inp.lo, inp.hi)
-    for _ in range(iters):
-        rhs = sigma * x - inp.q + _apply_at(inp.rho * z - y, inp.mu)
-        rhs_hi = _bf16(rhs)
-        pair = torch.stack([rhs_hi, _bf16(rhs - rhs_hi)], dim=-1)
-        xt2 = torch.matmul(m_bf, pair)
-        x_t = xt2[..., 0] + xt2[..., 1]
-        z_rel = alpha * _apply_a(x_t, inp.mu) + (1.0 - alpha) * z
-        x = alpha * x_t + (1.0 - alpha) * x
-        z_new = torch.clamp(z_rel + y / inp.rho, inp.lo, inp.hi)
-        y = y + inp.rho * (z_rel - z_new)
-        z = z_new
-    return x, z, y
+    with span("qtpu.qp.admm"):
+        m_bf = _bf16(inp.m_inv)
+        x, y = inp.x0, inp.y0
+        z = torch.clamp(_apply_a(x, inp.mu), inp.lo, inp.hi)
+        for _ in range(iters):
+            rhs = sigma * x - inp.q + _apply_at(inp.rho * z - y, inp.mu)
+            rhs_hi = _bf16(rhs)
+            pair = torch.stack([rhs_hi, _bf16(rhs - rhs_hi)], dim=-1)
+            xt2 = torch.matmul(m_bf, pair)
+            x_t = xt2[..., 0] + xt2[..., 1]
+            z_rel = alpha * _apply_a(x_t, inp.mu) + (1.0 - alpha) * z
+            x = alpha * x_t + (1.0 - alpha) * x
+            z_new = torch.clamp(z_rel + y / inp.rho, inp.lo, inp.hi)
+            y = y + inp.rho * (z_rel - z_new)
+            z = z_new
+        return x, z, y
 
 
 def _unscale(prob: ConeQP, inp: AdmmInputs, x_s: torch.Tensor,

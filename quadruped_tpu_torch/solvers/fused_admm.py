@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from quadruped_tpu_torch.utils import cuda_build
+from quadruped_tpu_torch.utils.logging import span
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_admm.cu"
 # Largest n the kernel takes: 768 threads a block hold M^{-1} in registers
@@ -153,31 +154,33 @@ def fused_admm(m_inv, q, mu, lo, hi, rho, x0, y0, *, iters: int,
     clip(A x0, lo, hi)), all float32 on one device (n = 3T, m = 5T). Each
     iteration's mat-vec is M^{-1} rhs, as in the JAX `solve`.
     """
-    check_operands(m_inv, q, mu, lo, hi, rho, x0, y0, z0=z0)
-    kw = dict(iters=iters, sigma=sigma, alpha=alpha,
-              accel_restart=accel_restart, z0=z0)
-    if q.device.type == "cpu":
-        return fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_admm: no kernel for device {q.device}")
-    b, n = q.shape
-    if n % 12 or n > MAX_N:
-        raise ValueError(f"n = {n}: the kernel takes n = 12 G <= {MAX_N}")
-    lib = _library()
-    args = [t.contiguous() for t in (m_inv, q, mu, lo, hi, rho, x0, y0)]
-    x = torch.empty_like(args[6])
-    y = torch.empty_like(args[7])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    z0c = None if z0 is None else z0.contiguous()
-    err = lib.fused_admm_launch(
-        *[t.data_ptr() for t in args],
-        None if z0c is None else z0c.data_ptr(), x.data_ptr(), y.data_ptr(),
-        b, n, iters, sigma, alpha, accel_restart, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_admm kernel launch failed: CUDA error "
-                           f"{err}")
-    fused_admm.launches += 1
-    return x, y
+    with span("qtpu.qp.admm"):
+        check_operands(m_inv, q, mu, lo, hi, rho, x0, y0, z0=z0)
+        kw = dict(iters=iters, sigma=sigma, alpha=alpha,
+                  accel_restart=accel_restart, z0=z0)
+        if q.device.type == "cpu":
+            return fused_admm_reference(m_inv, q, mu, lo, hi, rho, x0, y0,
+                                        **kw)
+        if q.device.type != "cuda":
+            raise ValueError(f"fused_admm: no kernel for device {q.device}")
+        b, n = q.shape
+        if n % 12 or n > MAX_N:
+            raise ValueError(f"n = {n}: the kernel takes n = 12 G <= {MAX_N}")
+        lib = _library()
+        args = [t.contiguous() for t in (m_inv, q, mu, lo, hi, rho, x0, y0)]
+        x = torch.empty_like(args[6])
+        y = torch.empty_like(args[7])
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        z0c = None if z0 is None else z0.contiguous()
+        err = lib.fused_admm_launch(
+            *[t.data_ptr() for t in args],
+            None if z0c is None else z0c.data_ptr(), x.data_ptr(),
+            y.data_ptr(), b, n, iters, sigma, alpha, accel_restart, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_admm kernel launch failed: CUDA error "
+                               f"{err}")
+        fused_admm.launches += 1
+        return x, y
 
 
 fused_admm.launches = 0

@@ -5,10 +5,22 @@ trace (port of quadruped_tpu/utils/logging.py).
 a batch-first `sim.rollout.RolloutResult` to scalars, and `profile_trace`
 records one call under `torch.profiler` into a Chrome trace, the
 counterpart of `jax.profiler.trace`.
+
+`span(name)` names a layer of the port's tick for whatever profiler is
+running: the rollout loop (`qtpu.rollout`), the simulator (`qtpu.sim.*`),
+the control tick (`qtpu.ctrl`, `.swing`, `.mpc`), the MPC solve and its
+QP stages (`qtpu.mpc.*`, `qtpu.condense`, `qtpu.qp.*`) and the host's
+waits for the device (`qtpu.sync.*`). Under `profile_trace`, or any
+`torch.profiler` session that records operators, each span is a range on
+the host timeline, on the clock of the card's kernels, around the
+operators it ran and their launch calls, which the trace links to their
+kernels: open the Chrome trace in Perfetto (ui.perfetto.dev) to follow a
+kernel to its layer. With no profiler running a span costs one branch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -57,6 +69,26 @@ def summarize_rollout(result) -> dict:
         "final_speed": float(np.mean(np.linalg.norm(
             vs[:, -1].reshape(-1, 3)[:, :2], axis=-1))),
     }
+
+
+_UNTRACED = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager naming a range of host work `name`: a record
+    function in the operators' scope (`RecordScope.FUNCTION`) while a
+    profiler is running, else one shared null context.
+
+    The operators' scope, and not the user annotations'
+    (`torch.profiler.record_function`), keeps the spans off the device's
+    timeline: the profiler mirrors each user annotation there as a
+    `gpu_user_annotation` over the kernels launched inside it, and a trace
+    that records only user annotations then shows device time where the
+    device was idle. A profiler that records operators records the spans;
+    one that records only user annotations does not."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _UNTRACED
 
 
 def profile_trace(fn, args, logdir: str = "/tmp/qtpu_torch_profile") -> str:

@@ -13,7 +13,8 @@ JAX package's (CPU).
   and joint angles within 1e-5 m; the skeleton's link lengths on a
   whole-body stand trace; `snapshot` and `animate_rollout` write a PNG and
   a GIF (the twin of tests/test_viz3d.py).
-* `profile_trace` writes a Chrome trace of one call on the CPU.
+* `profile_trace` writes a Chrome trace of one call on the CPU, with the
+  port's spans in it.
 """
 
 import json
@@ -225,9 +226,19 @@ def test_snapshot_and_gif(tmp_path):
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
+    from quadruped_tpu_torch.sim import srb_sim
+
+    params = named_params("a1", "cpu")
+    state = srb_sim.srb_sim_init(params, 2)
     x = torch.randn(64, 64)
-    out = tlog.profile_trace(lambda a: a @ a, (x,), str(tmp_path / "prof"))
+
+    def call(a):
+        srb_sim.observe(params, state, torch.ones(2, 4))
+        return a @ a
+
+    out = tlog.profile_trace(call, (x,), str(tmp_path / "prof"))
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert out == str(tmp_path / "prof")
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mm" in n for n in names)
+    assert "qtpu.sim.observe" in names
