@@ -13,8 +13,8 @@ import math
 import torch
 
 from quadruped_tpu_torch.core import linalg
-from quadruped_tpu_torch.robots.params import (SIDE_SIGN, RobotParams,
-                                               per_scenario)
+from quadruped_tpu_torch.robots.params import (RobotParams, per_scenario,
+                                               side_sign)
 
 
 def foot_position_in_hip_frame(q, l_hip, l_up, l_low) -> torch.Tensor:
@@ -74,7 +74,7 @@ def leg_jacobian(q, l_hip, l_up, l_low) -> torch.Tensor:
 def _leg_lengths(params: RobotParams, like: torch.Tensor, ndim: int):
     """(signed abad length [4], thigh, calf) shaped to broadcast against
     per-leg tensors [..., 4] of `ndim` dims."""
-    sign = torch.as_tensor(SIDE_SIGN, dtype=like.dtype, device=like.device)
+    sign = side_sign(like.dtype, like.device)
     return (sign * per_scenario(params, params.hip_length, ndim),
             per_scenario(params, params.upper_length, ndim),
             per_scenario(params, params.lower_length, ndim))

@@ -21,6 +21,7 @@ hold them equal field by field.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +32,14 @@ from quadruped_tpu_torch.utils import card, tree
 SIDE_SIGN = (-1.0, 1.0, -1.0, 1.0)
 NUM_LEGS = 4
 NUM_JOINTS = 12
+
+
+@functools.lru_cache(maxsize=None)
+def side_sign(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """SIDE_SIGN as a [4] tensor, made once per (dtype, device) and shared
+    by every caller, which only reads it: no host-to-device copy a call,
+    so a CUDA graph can capture the kinematics."""
+    return torch.as_tensor(SIDE_SIGN, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass
@@ -69,8 +78,8 @@ class RobotParams:
     @property
     def signed_hip_length(self) -> torch.Tensor:
         """[4] ([B, 4] stacked) abad link y-offset with per-leg side sign."""
-        return per_scenario(self, self.hip_length, 2) * torch.as_tensor(
-            SIDE_SIGN, dtype=torch.float32, device=self.hip_length.device)
+        return per_scenario(self, self.hip_length, 2) * side_sign(
+            torch.float32, self.hip_length.device)
 
     @property
     def max_force(self) -> torch.Tensor:
