@@ -8,15 +8,15 @@ import pytest
 import torch
 
 from portbench import calibrate, check, harness
+from portbench.tests.cases import driver
 
-CELLS = {w["name"] for w in harness.load_json(
-    harness.ROOT / "BENCHMARK.json")["workloads"]}
-# The control's size for each cell that BENCHMARK.json holds.
+CELLS = [w["name"] for w in harness.load_json(
+    harness.ROOT / "BENCHMARK.json")["workloads"]]
+# The control's size for each driver, so a cell added by files alone has one.
 SIZES = {
-    "a1-h10.sweep-b2048": dict(batch=256),
-    "aliengo-wbc-h5.sweep-b1024": dict(batch=128),
-    "a1-h10.update-b8192": dict(batch=1024),
-    "a1-h10.tick-b1": dict(),
+    "sweep": dict(batch=256),
+    "update": dict(batch=1024),
+    "tick": dict(),
 }
 
 
@@ -31,12 +31,12 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", [n for n in SIZES if n in CELLS])
+@pytest.mark.parametrize("name", CELLS)
 def test_control_fails_and_program_passes(card, name):
     limits = check.limits(name)
     assert limits, f"no limits for {name}"
     r = calibrate.readings(name, 2 ** 31 + 101, 2.0, True, card,
-                           overrides=SIZES[name])
+                           overrides=SIZES[driver(name)])
     ok, _ = check.verdict(r["program"], limits)
     assert ok, r["program"]
     control_ok, _ = check.verdict(r["control"], limits)

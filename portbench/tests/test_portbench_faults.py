@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from portbench import harness
-from portbench.tests.cases import SMALL
+from portbench.tests.cases import small
 
 # The closed-loop cells of BENCHMARK.json (sweep and tick drivers).
 ROLLOUT_CELLS = [w["name"] for w in harness.load_json(
@@ -21,7 +21,7 @@ ROLLOUT_CELLS = [w["name"] for w in harness.load_json(
 
 def _run(name):
     return harness.rehearse(name, seed=2 ** 31 + 23, seconds=0.3,
-                            overrides=SMALL[name])
+                            overrides=small(name))
 
 
 def _half(v: torch.Tensor) -> torch.Tensor:
@@ -56,7 +56,7 @@ def _closed_loop_fault(monkeypatch, fault):
                                    "answer_altered"])
 @pytest.mark.parametrize("name", ROLLOUT_CELLS)
 def test_closed_loop_fault_is_caught(monkeypatch, name, fault):
-    if fault == "half_batch" and SMALL[name].get("batch", 1) == 1:
+    if fault == "half_batch" and small(name).get("batch", 1) == 1:
         pytest.skip("one robot: no half of the batch to leave out")
     _closed_loop_fault(monkeypatch, fault)
     r = _run(name)

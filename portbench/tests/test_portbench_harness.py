@@ -9,13 +9,14 @@ import os
 import shutil
 import subprocess
 import sys
+import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import pytest
 import torch
 
 from portbench import harness, roofline
-from portbench.tests.cases import SMALL
+from portbench.tests import cases
 
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = ROOT / "portbench"
@@ -33,9 +34,16 @@ def test_cell_resolves_to_its_files(name):
     ref = files["traffic"].get("reference")
     if ref:
         assert (PACKAGE / "reference" / f"{ref}.py").exists()
+    for fn in ("setup", "window", "end_to_end", "work", "lines", "check"):
+        assert callable(getattr(files["driver"], fn)), fn
+    assert set(cases.small(name)) <= set(files["traffic"])
     for m in files["per_layer"]:
         assert callable(harness.reader(m["name"]))
-    assert any(m["name"] == "setup_s" for m in files["end_to_end"])
+    reported = {m["name"] for m in files["end_to_end"]}
+    for m in BENCH["per_layer"]:
+        if name in m.get("workloads", []):
+            assert m["moves"] in reported, m["name"]
+    assert "setup_s" in reported
     assert len(files["end_to_end"]) >= 2 and files["per_layer"]
     entry = {c["name"]: c for c in BENCH["configs"]}[cell["config"]]
     assert (ROOT / entry["file"]).exists()
@@ -64,7 +72,7 @@ def test_config_numbers_are_the_programs(name):
 @pytest.mark.parametrize("name", CELLS)
 def test_rehearsal_gives_the_result_keys(name, trace):
     r = harness.rehearse(name, seed=2 ** 31 + 11, seconds=0.3, trace=trace,
-                         overrides=SMALL[name])
+                         overrides=cases.small(name))
     for key in KEYS:
         assert key in r
     assert list(r)[-1] == "checks"
@@ -122,9 +130,9 @@ def test_harness_loads_no_jax():
     package's."""
     code = ("import sys\n"
             "from portbench import harness\n"
-            "from portbench.tests.cases import SMALL\n"
+            "from portbench.tests.cases import small\n"
             f"for n in {CELLS!r}:\n"
-            "    harness.rehearse(n, 3, 0.2, True, SMALL[n])\n"
+            "    harness.rehearse(n, 3, 0.2, True, small(n))\n"
             "print(sorted({k.split('.')[0] for k in sys.modules}))\n"
             "print(harness.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -149,7 +157,8 @@ def test_measurement_refuses_without_a_card():
 
 def test_files_added_to_a_copy_are_found(tmp_path):
     """A configuration, a traffic mix, a cell and its limits added as new
-    files and BENCHMARK.json entries run with no edit of any file."""
+    files and BENCHMARK.json entries run with no edit of any file, and
+    pass the benchmark's own parametrised tests in the copy."""
     shutil.copytree(PACKAGE, tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads(json.dumps(BENCH))
@@ -158,12 +167,14 @@ def test_files_added_to_a_copy_are_found(tmp_path):
     cfg["name"] = "a1-trot-mpc-h10-copy"
     (tmp_path / "portbench" / "configs" / "a1-trot-mpc-h10-copy.json") \
         .write_text(json.dumps(cfg))
-    traffic = json.loads((PACKAGE / "traffic" / "sweep-b2048.json")
+    sweep = next(w for w in BENCH["workloads"]
+                 if cases.driver(w["name"]) == "sweep")
+    traffic = json.loads((PACKAGE / "traffic" / f"{sweep['traffic']}.json")
                          .read_text())
-    traffic.update(SMALL["a1-h10.sweep-b2048"], batch=3)
+    traffic.update(cases.BY_DRIVER["sweep"], batch=3)
     (tmp_path / "portbench" / "traffic" / "sweep-b3.json").write_text(
         json.dumps(traffic))
-    shutil.copy(PACKAGE / "limits" / "a1-h10.sweep-b2048.json",
+    shutil.copy(PACKAGE / "limits" / f"{sweep['name']}.json",
                 tmp_path / "portbench" / "limits" / "copy.sweep-b3.json")
     bench["configs"].append(dict(bench["configs"][0],
                                  name="a1-trot-mpc-h10-copy",
@@ -174,7 +185,7 @@ def test_files_added_to_a_copy_are_found(tmp_path):
                                "traffic": "sweep-b3", "chips": 1,
                                "why": "a cell made of new files"})
     for m in bench["end_to_end"] + bench["per_layer"]:
-        if "a1-h10.sweep-b2048" in m.get("workloads", []):
+        if sweep["name"] in m.get("workloads", []):
             m["workloads"].append("copy.sweep-b3")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     code = ("import json\nfrom portbench import harness\n"
@@ -186,6 +197,30 @@ def test_files_added_to_a_copy_are_found(tmp_path):
     assert r["correct"] is True
     assert set(r["metrics"]) == {"robot_s_per_s", "setup_s"}
     assert r["attempted"] % 3 == 0
+    # The benchmark's own tests, run in the copy, take the new cell as one
+    # more case each (its name's "." and "-" cannot be in a -k expression).
+    xml = tmp_path / "copy.xml"
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "portbench/tests", "-q",
+         "-p", "no:cacheprovider", "-k", "copy and not files_added",
+         f"--junitxml={xml}"],
+        cwd=tmp_path, env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout[-4000:]
+    control = "passed" if torch.cuda.is_available() else "skipped"
+    cases_run = {}
+    for case in ET.parse(xml).iter("testcase"):
+        assert "copy.sweep-b3" in case.get("name"), case.get("name")
+        test = case.get("name").split("[")[0]
+        outcome = "skipped" if case.find("skipped") is not None else "passed"
+        cases_run.setdefault(test, []).append(outcome)
+    assert cases_run == {
+        "test_cell_resolves_to_its_files": ["passed"],
+        "test_config_numbers_are_the_programs": ["passed"],
+        "test_rehearsal_gives_the_result_keys": ["passed"] * 2,
+        "test_closed_loop_fault_is_caught": ["passed"] * 3,
+        "test_rehearsal_reads_the_spans_of_its_cell": ["passed"],
+        "test_control_fails_and_program_passes": [control],
+    }
 
 
 def test_a_directory_of_the_benchmark_alone_refuses(tmp_path):

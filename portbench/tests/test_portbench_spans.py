@@ -7,8 +7,8 @@ import json
 import pytest
 import torch
 
-from portbench import harness, spans, trace
-from portbench.tests.cases import SMALL
+from portbench import harness, program, spans, trace
+from portbench.tests import cases
 
 CELLS = [w["name"] for w in json.loads(
     (harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
@@ -179,11 +179,21 @@ def test_the_harness_metrics_read_the_same_with_spans():
         assert read(after, work) == read(before, work), metric
 
 
+def _span_overrides(name: str) -> dict:
+    """The rehearsal's sizes, with a tick cell tracing one tick more than
+    its configuration's ticks a solve, so that a solve lies inside the
+    traced ticks."""
+    overrides = cases.small(name)
+    if cases.driver(name) == "tick":
+        config, _ = program.locomotion(harness.cell_files(name)["config"],
+                                       "cpu")
+        overrides["trace_units"] = config.mpc.ticks_per_solve + 1
+    return overrides
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_rehearsal_reads_the_spans_of_its_cell(name):
-    overrides = dict(SMALL[name])
-    if name == "a1-h10.tick-b1":
-        overrides["trace_units"] = 9    # one MPC solve every 8 ticks
+    overrides = _span_overrides(name)
     r = spans.run(name, 2 ** 31 + 11, 0.3, torch.device("cpu"), overrides)
     st, work = r["spans"], r["work"]
     got = spans.readings(st, work)
