@@ -193,14 +193,18 @@ def locomotion_step(config: LocomotionConfig, params: RobotParams,
             mpc_state = state.mpc
 
         if wbc_on and any_wbc:
-            wbc_cmd = _wbc_command(mpc_state, swing_state, obs, gait_state,
-                                   des.position[:, 2])
-            _, _, tau_wbc = wbc_mod.wbc_step(
-                config.wbc or wbc_mod.WbcConfig(), params, model, obs,
-                wbc_cmd)
-            tau_stance = torch.where(
-                do_wbc[:, None] & (stance_joint_mask > 0.5), tau_wbc,
-                tau_stance)
+            wbc_mod._STEP.calls += 1
+            with span("qtpu.ctrl.wbc"):
+                wbc_cmd = _wbc_command(mpc_state, swing_state, obs,
+                                       gait_state, des.position[:, 2])
+                _, _, tau_wbc = wbc_mod.wbc_step(
+                    config.wbc or wbc_mod.WbcConfig(), params, model, obs,
+                    wbc_cmd)
+                tau_stance = torch.where(
+                    do_wbc[:, None] & (stance_joint_mask > 0.5), tau_wbc,
+                    tau_stance)
+        elif wbc_on:
+            wbc_mod._STEP.skipped += 1
 
         sw = swing_mask > 0.5
         zero = torch.zeros_like(q_sw)

@@ -31,6 +31,7 @@ from quadruped_tpu_torch.core import linalg, se3
 from quadruped_tpu_torch.dynamics import floating_base as fb
 from quadruped_tpu_torch.robots.params import RobotParams, per_scenario
 from quadruped_tpu_torch.solvers import qp
+from quadruped_tpu_torch.utils.logging import span
 
 NDOF = fb.NUM_DOF  # 18
 PINV_THRESH = 1e-3
@@ -191,77 +192,80 @@ def wbic_torque(config: WbcConfig, params: RobotParams,
                 cmd: WbcCommand, jts, jdqds, accs, jc, jcdqd):
     """Dynamic pass: acceleration cascade and QP -> (feed-forward torque
     [B, 12], qddot [B, 18], total reaction forces [B, 12])."""
-    b = state.q.shape[0]
-    a_mat = fb.mass_matrix(model, state.q)
-    grav = fb.gravity_force(model, state)
-    cori = fb.coriolis_force(model, state)
-    a_inv = linalg.inv_spd(a_mat)
-    eye = _eye(a_mat)
+    with span("qtpu.wbc.dynamics"):
+        b = state.q.shape[0]
+        a_mat = fb.mass_matrix(model, state.q)
+        grav = fb.gravity_force(model, state)
+        cori = fb.coriolis_force(model, state)
+        a_inv = linalg.inv_spd(a_mat)
+        eye = _eye(a_mat)
 
-    contact = cmd.contact_state
-    cmask = torch.repeat_interleave(contact, 3, dim=-1)        # [B, 12]
-    jc_stacked = jc.reshape(b, 12, NDOF) * cmask[..., None]
-    jc_t = jc_stacked.transpose(-1, -2)
-    jcdqd_stacked = jcdqd.reshape(b, 12) * cmask
-    fr_des = cmd.fr_des.reshape(b, 12) * cmask
+        contact = cmd.contact_state
+        cmask = torch.repeat_interleave(contact, 3, dim=-1)    # [B, 12]
+        jc_stacked = jc.reshape(b, 12, NDOF) * cmask[..., None]
+        jc_t = jc_stacked.transpose(-1, -2)
+        jcdqd_stacked = jcdqd.reshape(b, 12) * cmask
+        fr_des = cmd.fr_des.reshape(b, 12) * cmask
 
-    # Acceleration cascade with dynamics-consistent inverses.
-    jc_bar = _weighted_pinv(jc_stacked, a_inv)
-    qddot_pre = _mv(jc_bar, -jcdqd_stacked)
-    n_pre = eye - jc_bar @ jc_stacked
-    n_tasks = jts.shape[1]
-    for i in range(n_tasks):
-        jt = jts[:, i]
-        jt_pre = jt @ n_pre
-        jt_bar = _weighted_pinv(jt_pre, a_inv)
-        qddot_pre = qddot_pre + _mv(
-            jt_bar, accs[:, i] - jdqds[:, i] - _mv(jt, qddot_pre))
-        if i < n_tasks - 1:
-            n_pre = n_pre @ (eye - jt_bar @ jt_pre)
+        # Acceleration cascade with dynamics-consistent inverses.
+        jc_bar = _weighted_pinv(jc_stacked, a_inv)
+        qddot_pre = _mv(jc_bar, -jcdqd_stacked)
+        n_pre = eye - jc_bar @ jc_stacked
+        n_tasks = jts.shape[1]
+        for i in range(n_tasks):
+            jt = jts[:, i]
+            jt_pre = jt @ n_pre
+            jt_bar = _weighted_pinv(jt_pre, a_inv)
+            qddot_pre = qddot_pre + _mv(
+                jt_bar, accs[:, i] - jdqds[:, i] - _mv(jt, qddot_pre))
+            if i < n_tasks - 1:
+                n_pre = n_pre @ (eye - jt_bar @ jt_pre)
 
-    # QP over z = [dqdd_fb (6), dFr (12)].
-    nz = 18
-    weights = torch.cat([
-        torch.full((6,), config.weight_fb, dtype=a_mat.dtype,
-                   device=a_mat.device),
-        torch.full((12,), config.weight_fr, dtype=a_mat.dtype,
-                   device=a_mat.device)])
-    p_cost = torch.diag(weights).expand(b, nz, nz)
-    q_cost = a_mat.new_zeros(b, nz)
+        # QP over z = [dqdd_fb (6), dFr (12)].
+        nz = 18
+        weights = torch.cat([
+            torch.full((6,), config.weight_fb, dtype=a_mat.dtype,
+                       device=a_mat.device),
+            torch.full((12,), config.weight_fr, dtype=a_mat.dtype,
+                       device=a_mat.device)])
+        p_cost = torch.diag(weights).expand(b, nz, nz)
+        q_cost = a_mat.new_zeros(b, nz)
 
-    # Equality rows: the floating-base dynamics.
-    a_eq = torch.cat([a_mat[:, 0:6, 0:6], -jc_t[:, 0:6, :]], dim=-1)
-    rhs_eq = -(_mv(a_mat, qddot_pre) + cori + grav
-               - _mv(jc_t, fr_des))[:, 0:6]
+        # Equality rows: the floating-base dynamics.
+        a_eq = torch.cat([a_mat[:, 0:6, 0:6], -jc_t[:, 0:6, :]], dim=-1)
+        rhs_eq = -(_mv(a_mat, qddot_pre) + cori + grav
+                   - _mv(jc_t, fr_des))[:, 0:6]
 
-    # Inequality rows per leg: the friction pyramid on the total force
-    # (stance), or dFr pinned to 0 (swing).
-    uf = _uf_rows(config.friction_mu, a_mat)
-    max_fz = (params.total_mass * 9.81).to(a_mat.dtype)    # [] or [B]
-    ineq_vec = torch.cat([a_mat.new_zeros(max_fz.shape + (5,)),
-                          -max_fz[..., None]], dim=-1)    # [6] or [B, 6]
-    pin_rows = torch.cat([torch.eye(3, dtype=a_mat.dtype,
-                                    device=a_mat.device),
-                          a_mat.new_zeros(3, 3)])
-    blocks, lows, highs = [], [], []
-    for leg in range(4):
-        stance = (contact[:, leg] > 0.5)[:, None]              # [B, 1]
-        col = 6 + 3 * leg
-        leg_rows = torch.where(stance[..., None], uf, pin_rows)  # [B, 6, 3]
-        zeros = leg_rows.new_zeros(b, 6, nz - 3)
-        blocks.append(torch.cat([zeros[..., :col], leg_rows,
-                                 zeros[..., col:]], dim=-1))
-        uf_frdes = fr_des[:, 3 * leg:3 * leg + 3] @ uf.T           # [B, 6]
-        lows.append(torch.where(stance, ineq_vec - uf_frdes,
-                                torch.zeros_like(uf_frdes)))
-        highs.append(torch.where(stance, torch.full_like(uf_frdes, BIG),
-                                 torch.zeros_like(uf_frdes)))
-    a_all = torch.cat([a_eq] + blocks, dim=1)
-    l_all = torch.cat([rhs_eq] + lows, dim=1)
-    u_all = torch.cat([rhs_eq] + highs, dim=1)
+        # Inequality rows per leg: the friction pyramid on the total force
+        # (stance), or dFr pinned to 0 (swing).
+        uf = _uf_rows(config.friction_mu, a_mat)
+        max_fz = (params.total_mass * 9.81).to(a_mat.dtype)  # [] or [B]
+        ineq_vec = torch.cat([a_mat.new_zeros(max_fz.shape + (5,)),
+                              -max_fz[..., None]], dim=-1)  # [6] or [B, 6]
+        pin_rows = torch.cat([torch.eye(3, dtype=a_mat.dtype,
+                                        device=a_mat.device),
+                              a_mat.new_zeros(3, 3)])
+        blocks, lows, highs = [], [], []
+        for leg in range(4):
+            stance = (contact[:, leg] > 0.5)[:, None]            # [B, 1]
+            col = 6 + 3 * leg
+            # [B, 6, 3]
+            leg_rows = torch.where(stance[..., None], uf, pin_rows)
+            zeros = leg_rows.new_zeros(b, 6, nz - 3)
+            blocks.append(torch.cat([zeros[..., :col], leg_rows,
+                                     zeros[..., col:]], dim=-1))
+            uf_frdes = fr_des[:, 3 * leg:3 * leg + 3] @ uf.T       # [B, 6]
+            lows.append(torch.where(stance, ineq_vec - uf_frdes,
+                                    torch.zeros_like(uf_frdes)))
+            highs.append(torch.where(stance, torch.full_like(uf_frdes, BIG),
+                                     torch.zeros_like(uf_frdes)))
+        a_all = torch.cat([a_eq] + blocks, dim=1)
+        l_all = torch.cat([rhs_eq] + lows, dim=1)
+        u_all = torch.cat([rhs_eq] + highs, dim=1)
 
-    sol = qp.admm_solve(p_cost, q_cost, a_all, l_all, u_all,
-                        iters=config.qp_iters)
+    with span("qtpu.wbc.qp"):
+        sol = qp.admm_solve(p_cost, q_cost, a_all, l_all, u_all,
+                            iters=config.qp_iters)
     qddot = qddot_pre + torch.cat([sol.x[:, 0:6],
                                    torch.zeros_like(sol.x[:, 6:])], dim=-1)
     fr_total = fr_des + sol.x[:, 6:18]
@@ -280,14 +284,25 @@ def wbc_step(config: WbcConfig, params: RobotParams,
         vel_body=torch.einsum("bi,bij->bj", obs.base_vel_world,
                               obs.rot_body_to_world),
         q=obs.joint_angles, dq=obs.joint_velocities)
-    jts, jdqds, errs, vels, accs, jc, jcdqd, _ = build_tasks(
-        config, model, state, cmd)
-    b = state.q.shape[0]
-    cmask = torch.repeat_interleave(cmd.contact_state, 3, dim=-1)
-    jc_stacked = jc.reshape(b, 12, NDOF) * cmask[..., None]
-    delta_q, qdot = multitask_projection(jts, errs, vels, jc_stacked)
+    with span("qtpu.wbc.tasks"):
+        jts, jdqds, errs, vels, accs, jc, jcdqd, _ = build_tasks(
+            config, model, state, cmd)
+        b = state.q.shape[0]
+        cmask = torch.repeat_interleave(cmd.contact_state, 3, dim=-1)
+        jc_stacked = jc.reshape(b, 12, NDOF) * cmask[..., None]
+        delta_q, qdot = multitask_projection(jts, errs, vels, jc_stacked)
     tau_ff, _, _ = wbic_torque(config, params, model, state, cmd,
                                jts, jdqds, accs, jc, jcdqd)
     limit = per_scenario(params, params.torque_limit, 2)
     tau_ff = torch.clamp(tau_ff, -limit, limit)
     return state.q + delta_q[:, 6:], qdot[:, 6:], tau_ff
+
+
+# The gate's counters, counted by `control/locomotion.py` through this
+# reference, bound here, so that a wrapper set on the module's `wbc_step`
+# (a profiler's, a test's) does not stand in the way of them: `calls` the
+# ticks on which the WBC ran, `skipped` the WBC ticks its gate skipped
+# because no scenario was due.
+_STEP = wbc_step
+_STEP.calls = 0
+_STEP.skipped = 0

@@ -93,7 +93,10 @@ def rollout_segment(config: LocomotionConfig, params: RobotParams,
         b, device = sim.t.shape[0], sim.t.device
         hs, vs, fs, taus = [], [], [], []
         dt32 = np.float32(control_dt)
-        model = fb.build_model(params) if config.use_wbc else None
+        model = None
+        if config.use_wbc:
+            with span("qtpu.wbc.model"):
+                model = fb.build_model(params)
         for i in range(carry.step, carry.step + steps):
             t = tick_time(np.float32(i + 1) * dt32, b, device)
             obs = srb_sim.observe(params, sim, stance_contact_mask(ctrl.gait))

@@ -8,14 +8,26 @@ counterpart of `jax.profiler.trace`.
 
 `span(name)` names a layer of the port's tick for whatever profiler is
 running: the rollout loop (`qtpu.rollout`), the simulator (`qtpu.sim.*`),
-the control tick (`qtpu.ctrl`, `.swing`, `.mpc`), the MPC solve and its
-QP stages (`qtpu.mpc.*`, `qtpu.condense`, `qtpu.qp.*`) and the host's
+the control tick (`qtpu.ctrl`, `.swing`, `.mpc`, `.wbc`), the MPC solve
+and its QP stages (`qtpu.mpc.*`, `qtpu.condense`, `qtpu.qp.*`), the
+whole-body controller (`qtpu.wbc.model`, the floating-base model built
+once a `rollout_segment`; inside `qtpu.ctrl.wbc`, `qtpu.wbc.tasks`, the
+task Jacobians and the kinematic cascade, `qtpu.wbc.dynamics`, the mass
+matrix, Coriolis and gravity terms, the weighted pseudo-inverse cascade
+and the QP's rows, and `qtpu.wbc.qp`, the QP's ADMM solve) and the host's
 waits for the device (`qtpu.sync.*`). Under `profile_trace`, or any
 `torch.profiler` session that records operators, each span is a range on
 the host timeline, on the clock of the card's kernels, around the
 operators it ran and their launch calls, which the trace links to their
 kernels: open the Chrome trace in Perfetto (ui.perfetto.dev) to follow a
 kernel to its layer. With no profiler running a span costs one branch.
+
+Counters beside the spans, plain integers counted on the host whether or
+not a profiler runs: `srb_sim_step.eager`, `.captures` and `.replays`
+(`sim/srb_sim.py`), and `wbc_step.calls` and `wbc_step.skipped`
+(`control/wbc.py`, counted by `locomotion_step`: the ticks with the WBC
+configured on which it ran, and those its gate skipped because no scenario
+was due).
 """
 
 from __future__ import annotations

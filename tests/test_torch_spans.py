@@ -10,6 +10,13 @@
   iteration falls on the cadence.
 * The rollout's traces are bit-identical with the profiler on and off.
 * A trace of user annotations alone records no span.
+* A `use_wbc` loop (the Aliengo at H=5, B=2, two segments of WBC_TICKS):
+  each tick on which the WBC runs holds `qtpu.ctrl.wbc` inside its
+  `qtpu.ctrl`, with `qtpu.wbc.tasks`, `.dynamics` and `.qp` inside it; a
+  tick that the WBC's gate skips holds none of them; `qtpu.wbc.model` is
+  there once a segment; the counters `wbc_step.calls` and `.skipped` count
+  the ticks the WBC ran and the gate skipped, WBC_TICKS * 2 in all; and
+  the loop's traces are bit-identical with the profiler on and off.
 """
 
 import contextlib
@@ -18,11 +25,11 @@ import json
 import pytest
 import torch
 
-from quadruped_tpu_torch.control import mpc, swing
+from quadruped_tpu_torch.control import mpc, swing, wbc
 from quadruped_tpu_torch.control.desired_state import TwistCommand
 from quadruped_tpu_torch.control.locomotion import LocomotionConfig
 from quadruped_tpu_torch.gait import ADVANCED_TROT
-from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.robots import a1_params, aliengo_params
 from quadruped_tpu_torch.sim import rollout
 from quadruped_tpu_torch.utils import logging as tlog
 
@@ -45,6 +52,20 @@ PARENT = {
     "qtpu.qp.inverse": "qtpu.mpc.solve",
     "qtpu.qp.admm": "qtpu.mpc.solve",
 }
+
+
+WBC_TICKS = 8
+WBC_SEGMENTS = 2
+# The WBC's spans and their innermost enclosing spans in a `use_wbc` loop.
+WBC_PARENT = {
+    "qtpu.wbc.model": "qtpu.rollout",
+    "qtpu.sync.wbc_gate": "qtpu.ctrl",
+    "qtpu.ctrl.wbc": "qtpu.ctrl",
+    "qtpu.wbc.tasks": "qtpu.ctrl.wbc",
+    "qtpu.wbc.dynamics": "qtpu.ctrl.wbc",
+    "qtpu.wbc.qp": "qtpu.ctrl.wbc",
+}
+WBC_INNER = ("qtpu.wbc.tasks", "qtpu.wbc.dynamics", "qtpu.wbc.qp")
 
 
 def _loop():
@@ -72,16 +93,72 @@ def _segment(profiled: bool, logdir: str = ""):
     return carry, out[0]
 
 
+def _spans(logdir: str) -> list:
+    """(start, end, name) of every `qtpu.` span of a `profile_trace`."""
+    with open(f"{logdir}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+            for e in events if e.get("ph") == "X"
+            and e.get("name", "").startswith("qtpu.")]
+
+
 @pytest.fixture(scope="module")
 def profiled(tmp_path_factory):
     logdir = str(tmp_path_factory.mktemp("spans"))
     carry, result = _segment(True, logdir)
-    with open(f"{logdir}/trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-             for e in events if e.get("ph") == "X"
-             and e.get("name", "").startswith("qtpu.")]
-    return carry, result, spans
+    return carry, result, _spans(logdir)
+
+
+def _wbc_loop():
+    config = LocomotionConfig(
+        mpc=mpc.MpcConfig(horizon=5, qp_iters=40), swing=swing.SwingConfig(),
+        gait=ADVANCED_TROT("cpu"), wbc=wbc.WbcConfig(), use_wbc=True)
+    params = aliengo_params("cpu")
+    cmd = TwistCommand.constant(vx=[0.2, 0.5], device="cpu")
+    return config, params, cmd, rollout.rollout_init(config, params, 2)
+
+
+def _wbc_segments(profiled: bool, logdir: str = ""):
+    """(results of WBC_SEGMENTS segments of WBC_TICKS ticks from a fresh
+    boot, the counters' increments over them), under `profile_trace` when
+    `profiled`."""
+    config, params, cmd, carry = _wbc_loop()
+    out = []
+
+    def run():
+        c = carry
+        for _ in range(WBC_SEGMENTS):
+            c, res = rollout.rollout_segment(config, params, cmd, c,
+                                             WBC_TICKS)
+            out.append(res)
+
+    before = (wbc._STEP.calls, wbc._STEP.skipped)
+    if profiled:
+        tlog.profile_trace(run, (), logdir)
+    else:
+        run()
+    return out, (wbc._STEP.calls - before[0], wbc._STEP.skipped - before[1])
+
+
+def _wbc_gate():
+    """Per tick of the WBC segments, whether any scenario runs the WBC:
+    every 2nd tick of its own count, never on a tick that solves the MPC;
+    read from the controller's state before each tick."""
+    config, params, cmd, carry = _wbc_loop()
+    gate = []
+    for _ in range(WBC_SEGMENTS * WBC_TICKS):
+        ctrl = carry.ctrl
+        gate.append(bool(((ctrl.wbc_iteration % 2 == 0)
+                          & ~mpc.solve_mask(config.mpc, ctrl.mpc)).any()))
+        carry, _ = rollout.rollout_segment(config, params, cmd, carry, 1)
+    return gate
+
+
+@pytest.fixture(scope="module")
+def wbc_profiled(tmp_path_factory):
+    logdir = str(tmp_path_factory.mktemp("wbc_spans"))
+    results, counts = _wbc_segments(True, logdir)
+    return results, counts, _spans(logdir), _wbc_gate()
 
 
 def _parents(spans):
@@ -100,6 +177,8 @@ def test_span_without_a_profiler_is_one_shared_null_context():
     assert isinstance(a, contextlib.nullcontext)
     with a, b:
         pass
+    for name in WBC_PARENT:
+        assert tlog.span(name) is a, name
 
 
 def test_a_trace_of_user_annotations_alone_records_no_span():
@@ -157,3 +236,56 @@ def test_traces_are_bit_identical_with_the_profiler_on_and_off(profiled):
     for a, b in zip(torch.utils._pytree.tree_leaves(on.sim.__dict__),
                     torch.utils._pytree.tree_leaves(off.sim.__dict__)):
         assert torch.equal(a, b)
+
+
+def test_the_gate_runs_and_skips_the_wbc(wbc_profiled):
+    *_, gate = wbc_profiled
+    assert 0 < sum(gate) < len(gate)
+
+
+def test_wbc_spans_nest_by_layer(wbc_profiled):
+    _, _, spans, _ = wbc_profiled
+    names = {n for _, _, n in spans}
+    assert set(WBC_PARENT) <= names
+    assert names - set(WBC_PARENT) <= set(PARENT)
+    for name, parent in _parents(spans):
+        if name in WBC_PARENT:
+            assert parent == WBC_PARENT[name], (name, parent)
+
+
+def test_wbc_spans_only_on_the_ticks_the_gate_lets_through(wbc_profiled):
+    _, _, spans, gate = wbc_profiled
+    ticks = sorted((s, e) for s, e, n in spans if n == "qtpu.ctrl")
+    assert len(ticks) == len(gate)
+    for (s, e), ran in zip(ticks, gate):
+        inside = [n for s2, e2, n in spans if s <= s2 and e2 <= e]
+        assert inside.count("qtpu.ctrl.wbc") == int(ran)
+        for name in WBC_INNER:
+            assert inside.count(name) == int(ran), name
+
+
+def test_wbc_model_once_a_segment(wbc_profiled):
+    _, _, spans, _ = wbc_profiled
+    count = {n: sum(m == n for _, _, m in spans)
+             for n in ("qtpu.rollout", "qtpu.wbc.model")}
+    assert count == {"qtpu.rollout": WBC_SEGMENTS,
+                     "qtpu.wbc.model": WBC_SEGMENTS}
+
+
+def test_wbc_counters_count_the_gate(wbc_profiled):
+    _, (calls, skipped), spans, gate = wbc_profiled
+    assert calls + skipped == WBC_SEGMENTS * WBC_TICKS
+    assert calls == sum(gate) == sum(n == "qtpu.ctrl.wbc"
+                                      for _, _, n in spans)
+    assert skipped == len(gate) - sum(gate)
+
+
+def test_wbc_traces_are_bit_identical_with_the_profiler_on_and_off(
+        wbc_profiled):
+    on, counts_on, _, _ = wbc_profiled
+    off, counts_off = _wbc_segments(False)
+    assert counts_on == counts_off
+    for a, b in zip(on, off):
+        for field in ("alive", "base_height_trace", "vel_trace",
+                      "forces_trace", "tau_trace"):
+            assert torch.equal(getattr(a, field), getattr(b, field)), field
