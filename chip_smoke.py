@@ -5,7 +5,7 @@
 Phases (each prints its own line; any failure raises and exits non-zero):
   0. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions; TF32 off for every float32 product;
-  1. build: the three kernels of quadruped_tpu_torch/csrc, one nvcc each,
+  1. build: the four kernels of quadruped_tpu_torch/csrc, one nvcc each,
      all started together; each kernel's registers, spills and ptxas
      performance notes (-Xptxas -v), and its dynamic shared memory;
   2. fused_admm vs plain: the ADMM-loop kernel against its plain torch
@@ -49,17 +49,20 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      POSITION mode
      (vx ~ U(0.0, 0.1)): at least 99% alive, every state finite, ms per
      tick and ticks/s, and over one more tick under torch.profiler the
-     CUDA kernels per tick and the device's busy share; no kernel of the
-     port launches in these modes (their QP is plain torch);
+     CUDA kernels per tick and the device's busy share; no MPC kernel
+     (K1-K3) launches in these modes, and the dense-QP kernel of phase 42
+     once a tick (the force balance's whitened QP);
   9. fixture: the 4-scenario VELOCITY and POSITION rollouts against the JAX
      package's output checked in at tests/data/rollout_modes_a1.npz;
  10. the WBC: `wbc_step` on B=1024 states of the twin of the JAX
      benchmarks/bench_wbc.py (ms per tick, CUDA kernels per tick and the
-     device's busy share; no kernel of the port launches, its QP is plain
-     torch), then `rollout` with use_wbc at B=1024 (A1, ADVANCED_TROT,
-     `MpcConfig(horizon=10)`, `WbcConfig()`, 400 ticks, vx ~ U(0.2, 0.6)):
+     device's busy share; no MPC kernel launches, the dense-QP kernel once
+     a call), then `rollout` with use_wbc at B=1024
+     (A1, ADVANCED_TROT, `MpcConfig(horizon=10)`, `WbcConfig()`, 400
+     ticks, vx ~ U(0.2, 0.6)):
      fused_admm launched once per MPC solve (1 boot + 50), the WBC called on
-     its 150 ticks (every 2nd, never on a solve tick), at least 99% alive,
+     its 150 ticks (every 2nd, never on a solve tick) and the dense-QP
+     kernel launched once on each of them, at least 99% alive,
      every state finite, ms per tick, ticks/s, kernels per tick and busy
      share;
  11. the whole-body closed loop (the twin of the JAX
@@ -82,8 +85,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      sim, 320 ticks (past the first TRUE_SWING entry, tick 308): at least
      99% alive, every state finite, at most one leg in TRUE_SWING per
      scenario on every tick, every leg that left its unload window swung,
-     no kernel of the port launched (the walk's QPs are plain torch), the
-     pose SQP run on the replan ticks only (counted); ms per tick, ticks/s,
+     no MPC kernel launched, the dense-QP kernel once a tick (the force
+     balance) and once a step of each pose SQP, the pose SQP run on the
+     replan ticks only (counted); ms per tick, ticks/s,
      robot-seconds per wall second, and kernels per tick and busy share
      over a replan tick and a normal tick;
  14. online gait transitions: the trot -> walk -> trot sequence of the JAX
@@ -245,6 +249,19 @@ robot each (B=1; the fleet sweep 16):
      and fused_admm on a call captured from example_a1_trot (B=1, n=120,
      40 iterations) and example_aliengo_wbc_trot (B=1, n=60, 40
      iterations) against its plain version and timed.
+ 42. `dense_qp:wbc:B131072`: the dense-QP kernel behind
+     `solvers/qp.py::admm_solve` (csrc/dense_qp.cu) against its plain
+     version `admm_solve_reference` on the WBC's own QPs
+     (`benchmarks/wbc.py::qp_problems`: B=131072 Aliengo trot states,
+     n=18, m=30, 50 iterations, then DENSE_QP_SHORT), both held to a
+     float64 run of the plain arithmetic problem by problem
+     (DENSE_QP_QUANTILES, DENSE_QP_FACTOR, DENSE_QP_FLOOR), with controls
+     that must fail the bound (10 iterations, no Newton step, one
+     iteration short of DENSE_QP_SHORT); max |dx| kernel vs plain, kernel
+     and plain ms, the bound and the share of it, one launch a call.
+Every phase that counts kernel launches holds the dense-QP kernel's to the
+QPs its callers asked for: one a `wbc_step`, one a force-balance polish
+(`polish.solve_factored`), one a pose SQP step (`count_qp_callers`).
 The check phases print no time: 4, 9, the cross-simulator check of 11,
 the fixtures of 12, the walk windows of 15, 19, 22-24, the per-path
 B=64 fleets of 35 and the examples of 40. They run after phase 35 and
@@ -460,6 +477,148 @@ def bound(bytes_moved: float, ops: dict) -> tuple[float, str]:
                                        else "operations")
 
 
+def dense_qp_work(batch: int, n: int, m: int,
+                  iters: int) -> tuple[float, dict]:
+    """(bytes, ops) of one dense-QP launch (`qp.admm_solve`, scaled): P, A,
+    q, l and u read once a problem, x, z, y and the two residuals written
+    once (float32); ten Ruiz passes (3 n^2 + 4 m n), M (2 m n^2 + m n), the
+    inverse (the Schur seed ~n^3, the guard's and two Newton steps' five
+    n x n products, the scalings: 11 n^3 + 6 n^2), the iterations (three
+    mat-vecs 4 m n + 2 n^2, the updates 6 n + 11 m) and the residuals
+    (4 m n + 2 n^2)."""
+    floats = (n * n + m * n + n + 2 * m) + (n + 2 * m + 2)
+    ops = (10 * (3 * n * n + 4 * m * n) + 2 * m * n * n + m * n
+           + 11 * n ** 3 + 6 * n * n
+           + iters * (4 * m * n + 2 * n * n + 6 * n + 11 * m)
+           + 4 * m * n + 2 * n * n)
+    return 4.0 * batch * floats, {"f32": float(batch * ops)}
+
+
+def dense_qp_quantiles(sol, ref) -> dict:
+    """{output: its problems' largest |sol - ref| at DENSE_QP_QUANTILES}."""
+    from quadruped_tpu_torch.solvers import qp
+
+    q = torch.tensor(DENSE_QP_QUANTILES, dtype=torch.float64,
+                     device=ref.x.device)
+    out = {}
+    for f in qp.QPSolution._fields:
+        d = (getattr(sol, f).double() - getattr(ref, f)).abs()
+        out[f] = torch.quantile(d.reshape(d.shape[0], -1).amax(-1),
+                                q).tolist()
+    return out
+
+
+def dense_qp_over(err: dict, plain: dict) -> dict:
+    """{output: quantiles at which err passes DENSE_QP_FACTOR x plain +
+    DENSE_QP_FLOOR}."""
+    out = {f: [q for q, e, p in zip(DENSE_QP_QUANTILES, err[f], plain[f])
+               if not e <= DENSE_QP_FACTOR * p + DENSE_QP_FLOOR]
+           for f in err}
+    return {f: qs for f, qs in out.items() if qs}
+
+
+def plain_newton_steps(k: int, args, kw):
+    """The plain version with k Newton steps in its inverse in place of
+    two (a control)."""
+    from quadruped_tpu_torch.core import linalg
+    from quadruped_tpu_torch.solvers import qp
+
+    inv = linalg.inv_spd
+
+    def fewer(m, refine=2):
+        return inv(m, refine=k)
+
+    linalg.inv_spd = fewer
+    try:
+        return qp.admm_solve_reference(*args, **kw)
+    finally:
+        linalg.inv_spd = inv
+
+
+def phase_dense_qp(dev) -> dict:
+    """Phase 42: the dense-QP kernel against its plain version on the WBC's
+    QPs at DENSE_QP_BATCH, at their budget and at DENSE_QP_SHORT, each held
+    to a float64 run of the plain arithmetic problem by problem, and the
+    controls failing that bound; returns the kernel's entry of the last
+    lines (its launches are set by the caller)."""
+    from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
+    from quadruped_tpu_torch.solvers import qp
+    from quadruped_tpu_torch.utils import card
+
+    args, kw = bench_wbc.qp_problems(DENSE_QP_BATCH, dev)
+    controls = {
+        kw["iters"]: {
+            "iters_10": lambda: qp.admm_solve_reference(
+                *args, **dict(kw, iters=10)),
+            "no_newton_step": lambda: plain_newton_steps(0, args, kw)},
+        DENSE_QP_SHORT: {
+            "one_iteration_fewer": lambda: qp.admm_solve_reference(
+                *args, **dict(kw, iters=DENSE_QP_SHORT - 1))}}
+    readings, bad = {}, {}
+    for iters, ctl in controls.items():
+        kwi = dict(kw, iters=iters)
+        before = qp.admm_solve.launches
+        got = qp.admm_solve(*args, **kwi)
+        launches = qp.admm_solve.launches - before
+        plain = qp.admm_solve_reference(*args, **kwi)
+        ref = qp.admm_solve_reference(*(t.double() for t in args), **kwi)
+        if not all(torch.isfinite(t).all() for t in got):
+            raise RuntimeError(f"dense_qp output not finite at {iters} "
+                               f"iterations")
+        if launches != 1:
+            raise RuntimeError(f"dense_qp: {launches} launches for one call")
+        err_p = dense_qp_quantiles(plain, ref)
+        err_k = dense_qp_quantiles(got, ref)
+        readings[iters] = {"kernel": err_k, "plain": err_p}
+        dx = (got.x - plain.x).abs().max().item()
+        readings[iters]["dx"] = dx
+        if dense_qp_over(err_k, err_p):
+            bad[f"kernel:{iters}"] = dense_qp_over(err_k, err_p)
+        for name, run in ctl.items():
+            err_c = dense_qp_quantiles(run(), ref)
+            readings[iters][name] = err_c
+            if not dense_qp_over(err_c, err_p):
+                bad[f"{name}:{iters}"] = "inside the bound"
+        del got, plain, ref
+    ms = card.time_ms(lambda: qp.admm_solve(*args, **kw), 20)
+    plain_ms = card.time_ms(lambda: qp.admm_solve_reference(*args, **kw), 3)
+    b, n = args[1].shape
+    m = args[3].shape[-1]
+    nbytes, ops = dense_qp_work(b, n, m, kw["iters"])
+    b_ms, b_by = bound(nbytes, ops)
+    full = readings[kw["iters"]]
+
+    def fmt(q):
+        return "/".join(f"{v:.3g}" for v in q)
+
+    phase(f"dense_qp:wbc:B{b}", batch=b, n=n, m=m, iters=kw["iters"],
+          max_abs_dx_vs_plain=full["dx"],
+          quantiles=json.dumps(DENSE_QP_QUANTILES),
+          **{f"err64_{who}_{iters}it_{f}": fmt(r[who][f])
+             for iters, r in readings.items()
+             for who in r if who != "dx" for f in ("x", "y")},
+          tol=f"vs float64 at each quantile: kernel <= {DENSE_QP_FACTOR} x "
+              f"plain + {DENSE_QP_FLOOR}, each control beyond it",
+          kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+          share_of_bound=b_ms / ms, launches_per_call=1)
+    if bad:
+        raise RuntimeError(f"dense_qp vs float64: {bad}")
+    return {"name": "dense_qp", "route": "cuda",
+            "source": "quadruped_tpu_torch/csrc/dense_qp.cu",
+            "replaces": None, "max_abs_err": full["dx"],
+            "max_abs_err_x_vs_float64": full["kernel"]["x"][-1],
+            "plain_max_abs_err_x_vs_float64": full["plain"]["x"][-1],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def ptxas_summary(log: str) -> str:
+    """ptxas's register, spill and performance lines of a build log."""
+    return " | ".join(ln.split("ptxas info    :")[-1].strip()
+                      for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln or "C7511" in ln)
+
+
 def admm_work(batch: int, n: int, iters: int) -> tuple[float, dict]:
     """(bytes, ops) of one ADMM kernel launch on B problems of n variables:
     the n x n matrix, q, mu, lo, hi, rho, x0, y0 read once, x and y written
@@ -516,6 +675,18 @@ def phase(name: str, **values):
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in values.items()),
           flush=True)
 
+
+# 42. The dense-QP kernel on the WBC's QPs at the Aliengo sweep's batch.
+# Held as tests/test_torch_qp_kernel.py holds it: to a float64 run of the
+# plain arithmetic, problem by problem: at each quantile of the problems'
+# largest errors, each output's at most twice the plain version's plus
+# 1e-6 (the two sum in other orders, and on these QPs the order moves
+# float32 results as far as float32 lies from float64). At DENSE_QP_SHORT
+# iterations each iteration still moves the iterate far beyond that noise.
+DENSE_QP_BATCH = 131072
+DENSE_QP_FACTOR, DENSE_QP_FLOOR = 2.0, 1e-6
+DENSE_QP_QUANTILES = (0.5, 0.9, 0.99, 1.0)
+DENSE_QP_SHORT = 5
 
 # 41. The examples timed at B=1: {example: (ticks of the device profile,
 # the example's default length)}. The timed run is the example's check at
@@ -998,24 +1169,81 @@ def kernel_wrappers() -> dict:
     """The wrapper of each kernel of the port, by name; each counts its
     launches in `.launches`."""
     from quadruped_tpu_torch.benchmarks import mxu_rate
-    from quadruped_tpu_torch.solvers import fused_admm, fused_full_solve
+    from quadruped_tpu_torch.solvers import fused_admm, fused_full_solve, qp
 
     return {"fused_admm": fused_admm.fused_admm,
             "fused_full_solve": fused_full_solve.fused_full_solve,
-            "unrolled_dots": mxu_rate.unrolled_dots}
+            "unrolled_dots": mxu_rate.unrolled_dots,
+            "dense_qp": qp.admm_solve}
+
+
+# The QPs the callers of `qp.admm_solve` asked for since reset_counts(), by
+# caller (count_qp_callers): `wbc_step` one a call, the force balance's
+# `polish.solve_factored` one a call, the pose planner's
+# `plan_target_pose_sqp` one a SQP step.
+QP_CALLS = {"wbc_step": 0, "solve_factored": 0, "sqp_steps": 0}
+
+
+def count_qp_callers():
+    """Wraps the three callers of `qp.admm_solve` in their modules for the
+    rest of the process, so that QP_CALLS counts the QPs each path asks
+    for and `qp_launches` can hold the dense-QP kernel's launches to them."""
+    import inspect
+
+    from quadruped_tpu_torch.control import wbc
+    from quadruped_tpu_torch.planner import pose_planner
+    from quadruped_tpu_torch.solvers import polish
+
+    sqp_iters = inspect.signature(
+        pose_planner.plan_target_pose_sqp).parameters["sqp_iters"].default
+
+    def counted(module, attr, key, qps):
+        inner = getattr(module, attr)
+        if getattr(inner, "counts_qps", False):
+            return
+
+        def wrapper(*a, **k):
+            QP_CALLS[key] += qps(k)
+            return inner(*a, **k)
+
+        wrapper.counts_qps = True
+        wrapper.__wrapped__ = inner     # its signature, for inspect
+        setattr(module, attr, wrapper)
+
+    counted(wbc, "wbc_step", "wbc_step", lambda k: 1)
+    counted(polish, "solve_factored", "solve_factored", lambda k: 1)
+    counted(pose_planner, "plan_target_pose_sqp", "sqp_steps",
+            lambda k: k.get("sqp_iters", sqp_iters))
 
 
 def reset_counts():
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+    for key in QP_CALLS:
+        QP_CALLS[key] = 0
+
+
+def qp_launches(path: str, expected=None) -> int:
+    """The dense-QP kernel's launches since reset_counts(): one for each QP
+    the path's callers asked for (QP_CALLS), and `expected` where given."""
+    from quadruped_tpu_torch.solvers import qp
+
+    n, asked = qp.admm_solve.launches, sum(QP_CALLS.values())
+    if n != asked or (expected is not None and n != expected):
+        raise RuntimeError(f"{path}: {n} dense-QP launches for the QPs "
+                           f"{QP_CALLS}, expected {expected}")
+    return n
 
 
 def counts_after(path: str, kernel: str, expected=None) -> int:
-    """The launch counts of the run of `path` since reset_counts(): only
-    `kernel` launched, `expected` times (at least once if None)."""
+    """The launch counts of the run of `path` since reset_counts(): of the
+    MPC kernels only `kernel` launched, `expected` times (at least once if
+    None); the dense-QP kernel as `qp_launches` holds it."""
     counts = {name: w.launches for name, w in kernel_wrappers().items()}
+    qp_launches(path)
     n = counts[kernel]
-    others = sum(counts.values()) - n
+    others = sum(v for k, v in counts.items()
+                 if k not in (kernel, "dense_qp"))
     if others or n == 0 or (expected is not None and n != expected):
         raise RuntimeError(f"{path}: kernel launches {counts}, expected "
                            f"{expected or 'some'} of {kernel} only")
@@ -1023,13 +1251,14 @@ def counts_after(path: str, kernel: str, expected=None) -> int:
 
 
 def path_launches(name: str, expected: int) -> int:
-    """The kernel launches since reset_counts(): K1 `expected` times (the
-    boot's cold start and one a batched MPC solve), or none where the path
-    solves no MPC."""
+    """The MPC kernel launches since reset_counts(): K1 `expected` times
+    (the boot's cold start and one a batched MPC solve), or none where the
+    path solves no MPC; the dense-QP kernel as `qp_launches` holds it."""
     if expected:
         return counts_after(name, "fused_admm", expected)
     counts = {k: w.launches for k, w in kernel_wrappers().items()}
-    if any(counts.values()):
+    qp_launches(name)
+    if any(v for k, v in counts.items() if k != "dense_qp"):
         raise RuntimeError(f"{name} launched kernels: {counts}")
     return 0
 
@@ -1531,6 +1760,7 @@ def main_checks(names, results_path: str) -> int:
         raise SystemExit("chip_smoke: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_qp_callers()
     results = run_checks(torch.device("cuda:0"), names)
     Path(results_path).write_text(json.dumps(results))
     return 0
@@ -1545,6 +1775,7 @@ def main_timed(results_path: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_qp_callers()
     readings, launches = phase_examples_timed(
         torch.device("cuda:0"), card.name_and_power_limit())
     Path(results_path).write_text(json.dumps([readings, launches]))
@@ -1600,6 +1831,7 @@ def main() -> int:
     from quadruped_tpu_torch.solvers import (cone_qp, fused_admm,
                                              fused_full_solve)
     from quadruped_tpu_torch.solvers import condense, problems
+    from quadruped_tpu_torch.solvers import qp as qp_mod
     from quadruped_tpu_torch.solvers.problems import bench_problems
     from quadruped_tpu_torch.core import se3 as se3_mod
     from quadruped_tpu_torch.dynamics import srb as srb_mod
@@ -1619,6 +1851,7 @@ def main() -> int:
     from quadruped_tpu_torch.robots import named_params
     from quadruped_tpu_torch.gait import named_gait
 
+    count_qp_callers()
     wrappers = kernel_wrappers()
 
     def admm_vs_plain(where: str, args, kw) -> tuple[float, float]:
@@ -1709,7 +1942,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = {"fused_admm": fused_admm.SOURCE,
                "fused_full_solve": fused_full_solve.SOURCE,
-               "unrolled_dots": mxu_rate.SOURCE}
+               "unrolled_dots": mxu_rate.SOURCE,
+               "dense_qp": qp_mod.SOURCE}
     built = cuda_build.build_shared_libraries(
         [(src, name) for name, src in sources.items()])
     seconds = time.perf_counter() - t0
@@ -1718,14 +1952,12 @@ def main() -> int:
     dyn_smem = {"fused_admm": 4 * fused_admm.VECTOR_FLOATS,
                 "fused_full_solve": fused_full_solve.SMEM_BYTES,
                 "unrolled_dots": "/".join(
-                    str(mxu_rate.smem_bytes(t)) for t in mxu_rate.DTYPES)}
+                    str(mxu_rate.smem_bytes(t)) for t in mxu_rate.DTYPES),
+                "dense_qp": qp_mod.smem_bytes()}
     for name, (_, log) in zip(sources, built):
-        ptxas = [ln.split("ptxas info    :")[-1].strip()
-                 for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "C7511" in ln]
         phase(f"build:{name}", seconds=f"{seconds:.3f}",
               dynamic_smem_bytes=dyn_smem[name],
-              ptxas=json.dumps(" | ".join(ptxas)))
+              ptxas=json.dumps(ptxas_summary(log)))
 
     # 2. Kernel vs plain on B=2048 production-shaped problems.
     params = a1_params(dev)
@@ -1966,7 +2198,7 @@ def main() -> int:
             raise RuntimeError(f"bench H={horizon}: routes differ by "
                                f"{dforce / MG:.4f} m*g")
 
-    # 8. The force-balance modes at B=2048: no kernel of the port launches.
+    # 8. The force-balance modes at B=2048: no MPC kernel launches.
     rng = np.random.default_rng(0)
     mode_cmds = {
         "velocity": (ControlMode.VELOCITY,
@@ -1985,8 +2217,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: w.launches for k, w in wrappers.items()}
-        if any(counts.values()):
-            raise RuntimeError(f"{name} mode launched kernels: {counts}")
+        path_launches(f"{name} mode", 0)
+        qp_launches(f"{name} mode", ticks)
         tensors = [getattr(res.sim, f) for f in res.sim.__dataclass_fields__]
         tensors += [res.base_height_trace, res.vel_trace, res.forces_trace]
         if not all(bool(torch.isfinite(t).all()) for t in tensors):
@@ -2021,8 +2253,8 @@ def main() -> int:
     torch.cuda.synchronize()
     tick_ms = 1e3 * (time.perf_counter() - t0) / 10
     counts = {k: w.launches for k, w in wrappers.items()}
-    if any(counts.values()):
-        raise RuntimeError(f"wbc_step launched kernels: {counts}")
+    path_launches("wbc_step", 0)
+    qp_launches("wbc_step", 10)
     prof = device_profile(lambda: [step(*wbc_args) for _ in range(3)], 3,
                           tick_ms)
     if not all(bool(torch.isfinite(o).all()) for o in step(*wbc_args)):
@@ -2064,6 +2296,7 @@ def main() -> int:
     if wbc_calls[0] != expected_wbc:
         raise RuntimeError(f"wbc_rollout: the WBC ran {wbc_calls[0]} times, "
                            f"expected {expected_wbc}")
+    qp_wbc = qp_launches("wbc_rollout", expected_wbc)
     tensors = [getattr(res.sim, f) for f in res.sim.__dataclass_fields__]
     tensors += [res.base_height_trace, res.vel_trace, res.forces_trace,
                 res.tau_trace]
@@ -2078,6 +2311,7 @@ def main() -> int:
     h = res.sim.position[:, 2]
     phase(f"wbc_rollout:B{WB_BATCH}", ticks=WBC_TICKS,
           kernel_launches=launches_wbc, wbc_calls=wbc_calls[0],
+          dense_qp_launches=qp_wbc,
           alive_fraction=alive, final_height_min=h.min().item(),
           final_height_max=h.max().item(),
           mean_vx_last=res.vel_trace[:, -100:, 0].mean().item(),
@@ -2147,8 +2381,9 @@ def main() -> int:
     finally:
         pose_planner.plan_target_pose_sqp = sqp
     counts = {k: w.launches for k, w in wrappers.items()}
-    if any(counts.values()):
-        raise RuntimeError(f"walk launched kernels: {counts}")
+    path_launches("walk", 0)
+    sqp_steps = QP_CALLS["sqp_steps"]
+    qp_launches("walk", WALK_TICKS + sqp_steps)
     tensors = [getattr(loop.sim.fb, f) for f in loop.sim.fb.__dataclass_fields__]
     tensors += [t for t in (loop.walk.liftoff_pos_world,
                             loop.walk.foot_target_world,
@@ -2182,7 +2417,7 @@ def main() -> int:
     prof_normal = device_profile(one_tick, 1, tick_ms)
     h = bench_walk.base_position(loop)[:, 2]
     phase(f"walk:B{WALK_BATCH}", ticks=WALK_TICKS, kernel_launches=
-          json.dumps(counts), sqp_calls=sqp_calls[0],
+          json.dumps(counts), sqp_calls=sqp_calls[0], sqp_steps=sqp_steps,
           replan_ticks=replan_ticks, alive_fraction=alive,
           max_legs_in_true_swing=max_swinging, legs_swung=legs_swung,
           legs_that_left_unload_without_swinging=missed_swings,
@@ -2937,6 +3172,10 @@ def main() -> int:
     late.update(k1_examples)
     late["launches_examples"] = dict(check_results, **timed_launches)
 
+    # 42. The dense-QP kernel on the WBC's QPs; its launches in the kernels
+    # line are the WBC rollout's (phase 10).
+    dense_qp_entry = dict(phase_dense_qp(dev), launches=qp_wbc)
+
     full_warm = full_timing[(10, "warm")]
     full_bench = bench_timing[(10, "fused_full_solve")]
     loop_bench = bench_timing[(10, "fused_admm")]
@@ -3028,7 +3267,7 @@ def main() -> int:
         "bound_ms_f32_cuda_cores": dots_bound_f32_cuda_cores,
         "library_ms_f32": rate["f32"]["matmul"][0],
         "tflops_f32": rate["f32"]["kernel"][1],
-    }]}), flush=True)
+    }, dense_qp_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

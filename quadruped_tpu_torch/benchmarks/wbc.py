@@ -9,6 +9,10 @@ kinematic multitask projection and the WBIC QP (`control/wbc.py::wbc_step`).
 The states are drawn as that file draws them, from `default_rng(0)`: stand
 angles plus N(0, 0.05) joint noise, N(0, 0.2) joint velocities. Prints one
 JSON line with ticks/s and the card's name and power limit.
+
+`qp_problems` gives the WBC's own QPs (the operands `wbic_torque` hands
+`solvers/qp.py::admm_solve`) on seeded Aliengo trot states, for the tests
+and chip_smoke.py to hold the dense-QP kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import torch
 from quadruped_tpu_torch.control import wbc
 from quadruped_tpu_torch.control.types import RobotObservation
 from quadruped_tpu_torch.dynamics import floating_base as fb
-from quadruped_tpu_torch.robots import a1_params
+from quadruped_tpu_torch.core import se3
+from quadruped_tpu_torch.robots import a1_params, aliengo_params, kinematics
+from quadruped_tpu_torch.solvers import qp
 from quadruped_tpu_torch.utils import card
 
 FEET = [[0.17, -0.13, 0.0], [0.17, 0.13, 0.0], [-0.17, -0.13, 0.0],
@@ -70,6 +76,91 @@ def build(batch: int, device=None):
         return wbc.wbc_step(config, params, model, o, c)
 
     return step, (obs, cmd)
+
+
+class _Captured(Exception):
+    """Raised by the recorder of `capture_qp` once it holds the QP."""
+
+
+def capture_qp(run):
+    """(args, kwargs) of the first `qp.admm_solve` call that `run()` makes;
+    the call is recorded in place of solved, and `run` stops there."""
+    held = []
+
+    def record(*args, **kwargs):
+        held.append((args, kwargs))
+        raise _Captured
+
+    solve = qp.admm_solve
+    qp.admm_solve = record
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        qp.admm_solve = solve
+    if not held:
+        raise RuntimeError("capture_qp: run() made no qp.admm_solve call")
+    return held[0]
+
+
+def qp_problems(batch: int, device=None, seed: int = 0):
+    """(args, kwargs) of the QP `wbic_torque` solves on `batch` seeded
+    Aliengo states: trot pairs in stance (the swing legs' force rows
+    pinned to 0, equality rows) on every other row and four legs on the
+    rest, tilted and moving bases, joints near the stand, feet targets near
+    the feet, MPC forces on the stance legs; 18 variables, 30 rows (6
+    dynamics equalities, 6 a leg: the friction pyramid up to +-1e8, or 3
+    pinned force rows and 3 zero rows). The WBC runs up to its QP, which is
+    recorded in place of solved."""
+    device = card.resolve(device)
+    params = aliengo_params(device)
+    model = fb.build_model(params)
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    contact = np.ones((batch, 4))
+    trot = rng.random((batch + 1) // 2) < 0.5
+    contact[0::2] = np.where(trot[:, None], [1, 0, 0, 1], [0, 1, 1, 0])
+    rpy = f32(rng.normal(size=(batch, 3)) * [0.05, 0.05, 0.3])
+    quat = se3.rpy_to_quat(rpy)
+    rot = se3.quat_to_rotmat(quat)
+    omega_body = f32(rng.normal(size=(batch, 3)) * 0.1)
+    stand = params.stand_angles.cpu().numpy()
+    height = float(params.body_height)
+    obs = RobotObservation(
+        base_position=f32(np.c_[rng.normal(size=(batch, 2)) * 0.1,
+                                height + rng.normal(size=batch) * 0.01]),
+        base_rpy=rpy, base_quat=quat,
+        base_vel_world=f32(np.c_[rng.uniform(0.0, 0.6, batch),
+                                 rng.normal(size=(batch, 2)) * 0.05]),
+        base_omega_world=torch.einsum("bij,bj->bi", rot, omega_body),
+        base_omega_body=omega_body,
+        joint_angles=f32(stand + rng.normal(size=(batch, 12)) * 0.05),
+        joint_velocities=f32(rng.normal(size=(batch, 12)) * 0.2),
+        foot_contact=f32(contact), foot_forces=f32(50.0 * contact))
+    feet = obs.base_position[:, None] + torch.einsum(
+        "bij,blj->bli", rot,
+        kinematics.foot_positions_in_base_frame(params, obs.joint_angles))
+    fz = float(params.total_mass) * 9.81 / contact.sum(-1)
+    fr = np.zeros((batch, 4, 3))
+    fr[..., 2] = fz[:, None]
+    fr = (fr + rng.normal(size=(batch, 4, 3)) * 3.0) * contact[..., None]
+    cmd = wbc.WbcCommand(
+        p_body_des=obs.base_position + f32(rng.normal(size=(batch, 3))
+                                           * 0.01),
+        v_body_des=obs.base_vel_world + 0.05,
+        a_body_des=f32(np.zeros((batch, 3))),
+        rpy_des=rpy * torch.tensor([0.0, 0.0, 1.0], device=device),
+        omega_des_world=f32(np.zeros((batch, 3))),
+        p_foot_des=feet + f32(rng.normal(size=(batch, 4, 3)) * 0.02),
+        v_foot_des=f32(rng.normal(size=(batch, 4, 3)) * 0.2),
+        a_foot_des=f32(rng.normal(size=(batch, 4, 3))), fr_des=f32(fr),
+        contact_state=f32(contact))
+    return capture_qp(lambda: wbc.wbc_step(wbc.WbcConfig(), params, model,
+                                           obs, cmd))
 
 
 def ticks_per_s(step, args, batch: int, reps: int) -> float:

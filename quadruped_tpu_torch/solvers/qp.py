@@ -5,18 +5,34 @@ Equalities are rows with l == u. Operands carry any leading batch axes.
 
 One inverse per solve, M = P + sigma I + A^T diag(rho) A (the block-Schur
 `inv_spd` with two Newton steps), then a fixed number of ADMM iterations,
-each a mat-vec and a clip: the JAX `lax.scan` becomes a Python loop of
-plain torch ops. Per-row rho (higher on equality rows), over-relaxation
-alpha = 1.6, optional Ruiz equilibration.
+each a mat-vec and a clip. Per-row rho (higher on equality rows),
+over-relaxation alpha = 1.6, optional Ruiz equilibration.
+
+`admm_solve` is the function the callers use. On CPU tensors it runs
+`admm_solve_reference`, the JAX `lax.scan` as a Python loop of plain torch
+ops. On CUDA tensors it launches the dense-QP kernel (csrc/dense_qp.cu,
+built with nvcc at the first launch; one warp a problem, the whole solve in
+one launch, n up to 20 and m up to 32) or raises; it never falls back to the plain
+version there. `admm_solve.launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from quadruped_tpu_torch.core import linalg
+from quadruped_tpu_torch.utils import cuda_build
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dense_qp.cu"
+# Largest n and m the kernel takes: one warp a problem, a lane a row; the
+# callers' n are 18 (the WBC), 12 (the polish) and 6 (the pose planner).
+MAX_N = 20
+MAX_M = 32
 
 DEFAULT_SIGMA = 1e-6
 DEFAULT_ALPHA = 1.6
@@ -88,18 +104,16 @@ def ruiz_equilibrate(p, q, a, l, u, iters: int = RUIZ_ITERS):
     return ps, qs, as_, ls, us, d, e, c
 
 
-def admm_solve(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
-               l: torch.Tensor, u: torch.Tensor, *,
-               rho: torch.Tensor | float | None = None,
-               sigma: float = DEFAULT_SIGMA, alpha: float = DEFAULT_ALPHA,
-               iters: int = 60, x0: torch.Tensor | None = None,
-               y0: torch.Tensor | None = None,
-               scale: bool = True) -> QPSolution:
-    """Solve a batch of dense QPs with a fixed ADMM iteration budget.
-
-    Warm start through (x0, y0). With scale=True the data is
-    Ruiz-equilibrated first; residuals are reported in the original
-    (unscaled) problem."""
+def admm_solve_reference(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
+                         l: torch.Tensor, u: torch.Tensor, *,
+                         rho: torch.Tensor | float | None = None,
+                         sigma: float = DEFAULT_SIGMA,
+                         alpha: float = DEFAULT_ALPHA, iters: int = 60,
+                         x0: torch.Tensor | None = None,
+                         y0: torch.Tensor | None = None,
+                         scale: bool = True) -> QPSolution:
+    """`admm_solve` in plain torch ops, on any device (the kernel's
+    arithmetic, in the same order)."""
     if scale:
         p0_, q0_, a0_, l0_, u0_ = p, q, a, l, u
         p, q, a, l, u, d_s, e_s, c_s = ruiz_equilibrate(p, q, a, l, u)
@@ -150,6 +164,133 @@ def admm_solve(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
     dual_vec = mv(p.transpose(-1, -2), x) + q + mv(at, y)
     dual = torch.amax(torch.abs(dual_vec), dim=-1)
     return QPSolution(x=x, z=z, y=y, prim_res=prim, dual_res=dual)
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one block of the kernel: four warps, each
+    with three MAX_N x MAX_N matrices, A as MAX_M x MAX_N and four 32-float
+    vectors."""
+    return 4 * 4 * (3 * MAX_N * MAX_N + MAX_M * MAX_N + 4 * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    path, _ = cuda_build.build_shared_library(SOURCE, "dense_qp")
+    lib = ctypes.CDLL(str(path))
+    lib.dense_qp_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib.dense_qp_launch.restype = ctypes.c_int
+    return lib
+
+
+def _batched(name: str, t: torch.Tensor, batch: torch.Size,
+             tail: tuple) -> torch.Tensor:
+    """t broadcast to batch + tail with its leading axes flattened into one;
+    a stride-0 batch (one matrix for every problem) stays a view, and the
+    trailing axes are made contiguous."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"admm_solve: {name} has dtype {t.dtype}, the "
+                        f"kernel takes float32")
+    try:
+        t = t.expand(batch + tail)
+    except RuntimeError as err:
+        raise ValueError(f"admm_solve: {name} of shape {tuple(t.shape)} does "
+                         f"not broadcast to {tuple(batch + tail)}") from err
+    t = t.reshape((-1,) + tail)
+    want = 1
+    for size, stride in zip(reversed(tail), reversed(t.stride()[1:])):
+        if size > 1 and stride != want:
+            return t.contiguous()
+        want *= size
+    return t
+
+
+def _kernel_operands(p, q, a, l, u, rho, x0, y0):
+    """Checks the operands the kernel takes and flattens their batch:
+    returns (batch shape, [p, q, a, l, u, rho, x0, y0] as `_batched` gives
+    them, None where absent; a float rho as a full row). Raises ValueError
+    on a shape or device and TypeError on a dtype the kernel does not
+    take."""
+    n, m = q.shape[-1], l.shape[-1]
+    if not (1 <= n <= MAX_N and 1 <= m <= MAX_M):
+        raise ValueError(f"admm_solve: n = {n}, m = {m}; the kernel takes "
+                         f"1 <= n <= {MAX_N}, 1 <= m <= {MAX_M}")
+    if (p.dim() < 2 or a.dim() < 2 or p.shape[-2:] != (n, n)
+            or a.shape[-2:] != (m, n) or u.shape[-1] != m):
+        raise ValueError(f"admm_solve: shapes p {tuple(p.shape)}, q "
+                         f"{tuple(q.shape)}, a {tuple(a.shape)}, l "
+                         f"{tuple(l.shape)}, u {tuple(u.shape)}")
+    if rho is not None and not isinstance(rho, torch.Tensor):
+        rho = torch.tensor(float(rho), device=q.device)
+    tensors = {"p": p, "q": q, "a": a, "l": l, "u": u, "rho": rho,
+               "x0": x0, "y0": y0}
+    for name, t in tensors.items():
+        if t is not None and t.device != q.device:
+            raise ValueError(f"admm_solve: {name} on {t.device}, q on "
+                             f"{q.device}")
+    try:
+        batch = torch.broadcast_shapes(
+            p.shape[:-2], q.shape[:-1], a.shape[:-2], l.shape[:-1],
+            u.shape[:-1], *(t.shape[:-1] for t in (x0, y0) if t is not None))
+    except RuntimeError as err:
+        raise ValueError(f"admm_solve: batch axes do not broadcast: "
+                         f"{err}") from err
+    tails = {"p": (n, n), "a": (m, n), "q": (n,), "x0": (n,)}
+    ops = [None if t is None else _batched(name, t, batch,
+                                           tails.get(name, (m,)))
+           for name, t in tensors.items()]
+    return batch, ops
+
+
+def admm_solve(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
+               l: torch.Tensor, u: torch.Tensor, *,
+               rho: torch.Tensor | float | None = None,
+               sigma: float = DEFAULT_SIGMA, alpha: float = DEFAULT_ALPHA,
+               iters: int = 60, x0: torch.Tensor | None = None,
+               y0: torch.Tensor | None = None,
+               scale: bool = True) -> QPSolution:
+    """Solve a batch of dense QPs with a fixed ADMM iteration budget.
+
+    Warm start through (x0, y0). With scale=True the data is
+    Ruiz-equilibrated first; residuals are reported in the original
+    (unscaled) problem. p [..., n, n], q [..., n], a [..., m, n], l and
+    u [..., m], rho None (default_rho), a float or a tensor that broadcasts
+    to l; leading axes broadcast against each other. CPU tensors take
+    `admm_solve_reference`; CUDA tensors the kernel, in float32 with
+    n <= MAX_N and m <= MAX_M, else this raises."""
+    if q.device.type == "cpu":
+        return admm_solve_reference(p, q, a, l, u, rho=rho, sigma=sigma,
+                                    alpha=alpha, iters=iters, x0=x0, y0=y0,
+                                    scale=scale)
+    batch, ops = _kernel_operands(p, q, a, l, u, rho, x0, y0)
+    if q.device.type != "cuda":
+        raise ValueError(f"admm_solve: no kernel for device {q.device}")
+    n, m = q.shape[-1], l.shape[-1]
+    b = batch.numel()
+    out = {k: torch.empty((b,) + tail, dtype=torch.float32, device=q.device)
+           for k, tail in (("x", (n,)), ("z", (m,)), ("y", (m,)),
+                           ("prim", ()), ("dual", ()))}
+    if b:
+        strides = (ctypes.c_longlong * 8)(
+            *(0 if t is None else t.stride(0) for t in ops))
+        err = _library().dense_qp_launch(
+            *(None if t is None else t.data_ptr() for t in ops), strides,
+            *(t.data_ptr() for t in out.values()), b, n, m, iters,
+            int(bool(scale)), sigma, alpha,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"admm_solve kernel launch failed: CUDA error "
+                               f"{err}")
+        admm_solve.launches += 1
+    return QPSolution(
+        x=out["x"].view(batch + (n,)), z=out["z"].view(batch + (m,)),
+        y=out["y"].view(batch + (m,)), prim_res=out["prim"].view(batch),
+        dual_res=out["dual"].view(batch))
+
+
+admm_solve.launches = 0
 
 
 def kkt_residuals(p, q, a, l, u, sol: QPSolution):
