@@ -18,7 +18,8 @@ Beside it, the fixture of the JAX tests/test_scenarios.py (`GRIDS`):
 tests/data/fleet_a1.npz keeps `jax.vmap(rollout)` of both grids over 150
 ticks and JAX's own spread over the window (one-float32-step nudges of the
 start), and `fixture_errors` holds a port run (`fixture_run`) to it:
-tests/test_torch_scenarios.py on the CPU, chip_smoke.py on the card.
+tests/test_torch_scenarios.py::test_fleet_fixture, on the CPU and on the
+card.
 """
 
 from __future__ import annotations

@@ -11,13 +11,15 @@ quarter of the batch each) through each path's own benchmark
 configuration, with stacked parameters where that benchmark runs the A1:
 
 * `velocity`, `position`: `sim.rollout.rollout` in VELOCITY / POSITION
-  mode (TROT, `ForceBalanceConfig()`), the configuration of chip_smoke.py
-  phase 8 (vx ~ U(0.1, 0.4) / U(0.0, 0.1));
+  mode (TROT, `ForceBalanceConfig()`), the configuration of
+  tests/test_torch_loops_srb.py::test_force_balance_modes (vx ~
+  U(0.1, 0.4) / U(0.0, 0.1));
 * `walk`: benchmarks/walk.py on the whole-body sim (the 3.7 s walk
   table, 40 cold ADMM iterations, the pose SQP on replan ticks; vx =
   0.02 + 0.05 U);
 * `wbc`: `rollout` with `use_wbc` (ADVANCED_TROT, `MpcConfig(horizon=10)`,
-  `WbcConfig()`; vx = 0.2 + 0.4 U), as chip_smoke.py phase 10;
+  `WbcConfig()`; vx = 0.2 + 0.4 U), as
+  tests/test_torch_loops_srb.py::test_wbc_rollout;
 * `wholebody`: benchmarks/whole_body.py (ADVANCED_TROT,
   `MpcConfig(horizon=10, qp_cold_iters=120)`; vx = 0.2 + 0.4 U);
 * `runner`: benchmarks/runner.py from the sitting boot (raw noisy
@@ -38,8 +40,8 @@ each robot's own body height. Each MPC solve of the fleet is one batched
 solve, one K1 launch on the card, with each row's force cap its own
 robot's m*g. `alone` builds the same path for the scenarios of one robot
 with one-robot parameters, which the fleet must equal scenario for
-scenario (tests/test_torch_fleet_*.py on the CPU, chip_smoke.py on the
-card). Prints one JSON line: ms per tick, ticks/s, robot-seconds per wall
+scenario (tests/test_torch_fleet_*.py on the CPU,
+tests/test_torch_loops_fleet.py on the card). Prints one JSON line: ms per tick, ticks/s, robot-seconds per wall
 second, K1 launches and each robot's alive share, with the card's name
 and power limit.
 """

@@ -26,8 +26,8 @@ parameters, the 16-scenario grid tiled to `--batch` rounded up to a
 multiple of 16). With the MPC cadence of 8 ticks,
 `--ticks 8` averages over one whole cycle. Prints one JSON line. A count, not a time: it is the same on the CPU and on the card,
 except that on the card some calls launch more than one kernel and the
-fused_admm kernel replaces its plain version's calls (chip_smoke.py counts
-the kernels).
+fused_admm kernel replaces its plain version's calls (the tests'
+`card_device.launches` counts the kernels).
 """
 
 from __future__ import annotations

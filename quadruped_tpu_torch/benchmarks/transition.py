@@ -3,8 +3,9 @@
 ADVANCED_TROT with the 0.45 s walk table as `gait_b`,
 `MpcConfig(horizon=5, qp_iters=24, qp_cold_iters=120)`, the SRB sim; a
 rising edge of `gait_switch` toggles a scenario's table (decelerate,
-stand, swap). tests/test_torch_gait_transition.py and chip_smoke.py run
-it and hold it against the JAX package's run of its first three segments
+stand, swap). tests/test_torch_gait_transition.py::
+test_closed_loop_matches_jax runs it, on the CPU and on the card, and
+holds it against the JAX package's run of its first three segments
 (tests/data/gait_transition_a1.npz) with `fixture_errors`.
 """
 

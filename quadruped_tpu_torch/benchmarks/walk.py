@@ -20,8 +20,8 @@ and the operators with the most host time per tick.
 
 The module also builds the walk loops of the JAX tests (the flat walk on
 the SRB sim, the stair climb and the gap crossing on the whole-body sim),
-which the CPU tests and chip_smoke.py run from checkpoints of the JAX
-package's runs.
+which tests/test_torch_walk_windows.py runs from checkpoints of the JAX
+package's runs, on the CPU and on the card.
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ angles plus N(0, 0.05) joint noise, N(0, 0.2) joint velocities. Prints one
 JSON line with ticks/s and the card's name and power limit.
 
 `qp_problems` gives the WBC's own QPs (the operands `wbic_torque` hands
-`solvers/qp.py::admm_solve`) on seeded Aliengo trot states, for the tests
-and chip_smoke.py to hold the dense-QP kernel to its plain version.
+`solvers/qp.py::admm_solve`) on seeded Aliengo trot states, for
+tests/test_torch_qp_kernel.py to hold the dense-QP kernel to its plain
+version.
 """
 
 from __future__ import annotations

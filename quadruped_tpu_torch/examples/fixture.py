@@ -1,7 +1,7 @@
 """The examples at the short lengths of their checks, held to the JAX
 examples' traces in tests/data/examples_jax.npz (written by
 tests/examples_jax.py): tests/test_torch_examples.py and
-tests/test_torch_examples_walk.py on the CPU, chip_smoke.py phase 40 on
+tests/test_torch_examples_walk.py, on the CPU and (their `cuda` cases) on
 the card, where no JAX is installed.
 
 Limits, port against JAX, taken from the existing tests of the same loops.
@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import math
 import socket
+import struct
 import threading
 import time
 from pathlib import Path
@@ -196,6 +197,50 @@ def over(errs: dict) -> dict:
 # handshake's single-value command.
 COMMAND_BYTES = {"native": 240, "unitree": 730, "deeprobotics": 252}
 SIMPLE_BYTES = 12
+
+
+def _crc32_unitree(data: bytes) -> int:
+    """Unitree CRC-32 (poly 0x04c11db7, init 0xFFFFFFFF, word-wise, no
+    reflection) over every 32-bit word but the trailing CRC word."""
+    crc = 0xFFFFFFFF
+    for i in range((len(data) >> 2) - 1):
+        (word,) = struct.unpack_from("<I", data, 4 * i)
+        for bit in range(31, -1, -1):
+            crc = ((crc << 1) & 0xFFFFFFFF) ^ (0x04C11DB7 if crc & 0x80000000
+                                               else 0)
+            if word >> bit & 1:
+                crc ^= 0x04C11DB7
+    return crc
+
+
+def wire_state_packet(mode: str) -> bytes:
+    """A state packet of each wire protocol, written at the spec offsets
+    (nothing shared with the C++ codec): joint j at 0.3 + 0.01 j in
+    `native` and `unitree`, wire joint w at 1.0 + 0.01 w in
+    `deeprobotics`."""
+    if mode == "native":
+        vals = np.zeros(51, np.float32)
+        vals[0], vals[1] = 5.0, 1.0
+        vals[11:23] = 0.3 + 0.01 * np.arange(12)
+        vals[47:51] = 30.0
+        return vals.tobytes()
+    if mode == "unitree":
+        buf = bytearray(891)
+        buf[0] = 0xFF
+        struct.pack_into("<4f", buf, 10, 1.0, 0.0, 0.0, 0.0)
+        for j in range(20):
+            buf[63 + 38 * j] = 0x0A
+            struct.pack_into("<f", buf, 63 + 38 * j + 1, 0.3 + 0.01 * j)
+        struct.pack_into("<4h", buf, 823, 10, 20, 30, 40)
+        struct.pack_into("<I", buf, 839, 123456)
+        struct.pack_into("<I", buf, 887, _crc32_unitree(bytes(buf)))
+        return bytes(buf)
+    payload = bytearray(336)
+    struct.pack_into("<I", payload, 0, 2500)
+    for w in range(12):
+        struct.pack_into("<4f", payload, 44 + 16 * w, 1.0 + 0.01 * w, 0.0,
+                         0.0, 35.0)
+    return struct.pack("<III", 0x0906, 336, 1 | (7 << 8)) + bytes(payload)
 
 
 class LoopbackMcu:

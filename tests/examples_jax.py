@@ -7,8 +7,9 @@ and runs the script's loop (`jax.jit` of `lax.scan`, or the script's own
 jitted functions where it has them: the teleop chunk and the bridge's
 tick). tests/test_torch_examples.py and tests/test_torch_examples_walk.py
 hold the port to them; the whole-body and walk loops, whose jit takes
-longer than these tests afford, and the ones chip_smoke.py needs on the
-card, where no JAX is installed, are kept in tests/data/examples_jax.npz:
+longer than these tests afford, and the ones the tests' `cuda` cases
+need on the card, where no JAX is installed, are kept in
+tests/data/examples_jax.npz:
 
     PYTHONPATH=. python tests/examples_jax.py
 
@@ -544,10 +545,7 @@ NUDGED = ("a1_trot", "aliengo_wbc_trot", "fleet_sweep", "keyboard_teleop",
 
 def fixture() -> dict:
     """Every example's JAX traces, flat {example/key: array}."""
-    import sys
-
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import wire_state_packet
+    from quadruped_tpu_torch.examples.fixture import wire_state_packet
 
     runs = {"a1_trot": a1_trot, "aliengo_wbc_trot": aliengo_wbc_trot,
             "fleet_sweep": fleet_sweep, "keyboard_teleop": keyboard_teleop,

@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import (assert_launches, cuda_device,  # noqa: F401
+                         launch_record, launches)
 from quadruped_tpu_torch import bench as tbench
+from quadruped_tpu_torch.solvers import cone_qp
 
 B = 16
 MG = 13.0 * 9.81
@@ -154,3 +157,153 @@ def test_flop_model_and_configurations(monkeypatch):
         fn(*args)
     with pytest.raises(ValueError, match="solver"):
         tbench.build_bench(2, "xla", 10, device="cpu")
+
+
+# --- on the card (marker `cuda`) -------------------------------------------
+
+CARD_B = 8192
+# The two routes' first-step forces against each other, a fraction of m*g:
+# the golden-parity gate (each route is held to its kernel's plain version
+# in tests/test_torch_fused_admm.py and _fused_full_solve.py).
+ROUTES_TOL = 0.03
+# The share of seeded solves whose polish diverged and took the cold
+# inverse (`seed_rescue`); a seeded path that leaves the pin flips to the
+# rescue (no Woodbury step) holds the forces and fails this.
+RESCUE_MAX_SHARE = 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [10, 16])
+def test_routes_on_card(cuda_device, horizon):
+    """The bench's update at B=8192 through route `loop` (K1) and route
+    `full` (K2): one launch of the route's kernel an update and no other,
+    every output finite, and the two routes' first-step forces within
+    ROUTES_TOL m*g of each other."""
+    first = {}
+    for solver, kernel in (("loop", "fused_admm"),
+                           ("full", "fused_full_solve")):
+        fn, args, _ = tbench.build_bench(CARD_B, solver, horizon,
+                                         device=cuda_device)
+        before = launches()
+        x, y = fn(*args)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launches().items()}
+        assert got == {"fused_admm": 0, "fused_full_solve": 0,
+                       "unrolled_dots": 0, "dense_qp": 0, kernel: 1}
+        assert torch.isfinite(x).all() and torch.isfinite(y).all()
+        first[solver] = x[:, :12]
+    dforce = (first["loop"] - first["full"]).abs().max().item()
+    assert dforce <= ROUTES_TOL * MG, dforce / MG
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [10, 16])
+def test_seeded_route_on_card(cuda_device, horizon):
+    """Route `loop` at B=8192 cold and seeded (`minv_reuse`: the boot's
+    inverse carry seeds M^{-1}): one K1 launch an update each, the seeded
+    outputs and carry finite, its first-step forces within TOL (the CPU
+    limits against JAX) of the cold update's, and at most
+    RESCUE_MAX_SHARE of its polishes rescued."""
+    fn_c, args_c, _ = tbench.build_bench(CARD_B, "loop", horizon,
+                                         device=cuda_device)
+    fn_s, args_s, _ = tbench.build_bench(CARD_B, "loop", horizon,
+                                         device=cuda_device, minv_reuse=True)
+    asked = dict.fromkeys(("wbc_step", "solve_factored", "sqp_steps"), 0)
+    before, rescued = launches(), cone_qp.seeded_inverse.rescued
+    x_s, y_s, carry = fn_s(*args_s)
+    torch.cuda.synchronize()
+    rescued = cone_qp.seeded_inverse.rescued - rescued
+    assert_launches(before, asked, k1=1)
+    before = launches()
+    x_c, _ = fn_c(*args_c)
+    torch.cuda.synchronize()
+    assert_launches(before, asked, k1=1)
+    assert torch.isfinite(x_s).all() and torch.isfinite(y_s).all()
+    assert torch.isfinite(carry.m_inv).all()
+    dforce = (x_s - x_c)[:, :12].abs().max().item()
+    assert dforce <= TOL[horizon] * MG, dforce / MG
+    assert rescued <= RESCUE_MAX_SHARE * CARD_B
+
+
+@pytest.mark.cuda
+def test_carried_chain_on_card(cuda_device):
+    """40 cadence solves at B=2048 (`bench_problems` 15 ms apart), seeded
+    (with the rescue) and cold, and a control (cold with two float32
+    polish steps), each against a 400-iteration relaxed solve of the same
+    problem: every step finite; the seeded error averaged over the batch
+    never more than 1% m*g over the cold one (the JAX
+    test_long_chain_no_accumulation's limit, which it applies to one
+    scenario; per scenario the chains part by chain noise, as the control
+    shows); the pins flip; at most RESCUE_MAX_SHARE of the seeded
+    polishes rescued; K1 once a solve."""
+    from quadruped_tpu_torch.control.mpc import MpcConfig
+    from quadruped_tpu_torch.solvers.problems import bench_problems
+
+    batch, steps = 2048, 40
+    cfg = MpcConfig()
+    warm_kw = dict(iters=cfg.qp_iters, alpha=cfg.qp_alpha,
+                   accel_restart=cfg.qp_accel_restart)
+    boot_kw = dict(iters=cfg.qp_cold_iters, alpha=cfg.qp_cold_alpha)
+    asked = dict.fromkeys(("wbc_step", "solve_factored", "sqp_steps"), 0)
+    before, rescued = launches(), cone_qp.seeded_inverse.rescued
+    excess, flips, starts, carry, pins = [], 0, None, None, None
+    for k in range(steps):
+        prob, _ = bench_problems(batch, horizon=10, t=k * tbench.CADENCE_S,
+                                 device=cuda_device)
+        oracle = cone_qp.solve(prob, **boot_kw)
+        if k == 0:
+            sol, carry = cone_qp.solve(prob, **boot_kw,
+                                       return_inv_carry=True)
+            sols = {"seeded": sol, "cold": oracle, "control": oracle}
+        else:
+            sols = {"cold": cone_qp.solve(prob, **warm_kw, **starts["cold"]),
+                    "control": cone_qp.solve(prob, **warm_kw,
+                                             **starts["control"],
+                                             ns_f32_polish=2)}
+            sols["seeded"], carry = cone_qp.solve(
+                prob, **warm_kw, **starts["seeded"], inv_carry=carry,
+                seed_rescue=True, return_inv_carry=True)
+        flips += 0 if pins is None else int((carry.pinned != pins).sum())
+        pins = carry.pinned
+        starts = {name: dict(x0=sol.x, y0=sol.y)
+                  for name, sol in sols.items()}
+        for sol in sols.values():
+            assert torch.isfinite(sol.x).all() and torch.isfinite(sol.y).all()
+        err = {name: (sol.x - oracle.x)[:, :12].abs().amax(dim=1) / MG
+               for name, sol in sols.items()}
+        excess.append((err["seeded"].mean() - err["cold"].mean()).item())
+    rescued = cone_qp.seeded_inverse.rescued - rescued
+    assert_launches(before, asked, k1=4 * steps - 2)  # step 0: boot, oracle
+    assert max(excess) <= 0.01 and flips > 0, (max(excess), flips)
+    assert rescued <= RESCUE_MAX_SHARE * batch * (steps - 1)
+
+
+@pytest.mark.cuda
+def test_dense_condensation_on_card(cuda_device):
+    """The dense condensation (`condense.condense_cost`) against the
+    structured one on the card, B=2048, H=10: max |diff| / max |value| of
+    P and of q within 1e-5 (3e-7 on the CPU at B=256)."""
+    from quadruped_tpu_torch.core import se3
+    from quadruped_tpu_torch.dynamics import srb
+    from quadruped_tpu_torch.robots import a1_params
+    from quadruped_tpu_torch.solvers import condense, problems
+
+    params = a1_params(cuda_device)
+    rpy, feet, x0 = (torch.as_tensor(a, device=cuda_device) for a in
+                     problems.bench_states(2048, 0.0,
+                                           np.random.default_rng(0)))
+    x_des = x0[:, None, :].repeat(1, 10, 1)
+    x_des[..., 9] = 0.4
+    a_ct, b_ct = srb.srb_continuous(se3.rpy_to_rotmat(rpy),
+                                    params.total_inertia, params.total_mass,
+                                    feet)
+    ad, bd = srb.srb_discretize(a_ct, b_ct, problems.DT_MPC)
+    w = torch.tensor(problems.STATE_WEIGHTS, dtype=torch.float32,
+                     device=cuda_device)
+    p_d, q_d = condense.condense_cost(ad, bd, x0, x_des, w,
+                                      problems.FORCE_WEIGHT, 10)
+    p_s, q_s = condense.condense_cost_structured(
+        a_ct, bd, ad, x0, x_des, w, problems.FORCE_WEIGHT, 10,
+        problems.DT_MPC)
+    assert ((p_d - p_s).abs().max() / p_s.abs().max()).item() <= 1e-5
+    assert ((q_d - q_s).abs().max() / q_s.abs().max()).item() <= 1e-5

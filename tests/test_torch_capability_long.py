@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import DEVICES, cuda
 from quadruped_tpu_torch.benchmarks import whole_body as bench_wb
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
@@ -44,8 +45,6 @@ from quadruped_tpu_torch.sim.rollout import rollout
 pytestmark = pytest.mark.slow
 
 DT = 0.002
-DEVICES = [pytest.param("cpu", id="cpu"),
-           pytest.param("cuda", id="cuda", marks=pytest.mark.cuda)]
 # The sprint's MPC state weights (tests/test_high_speed_trot.py).
 SPRINT_WEIGHTS = (10, 10, 5, 40, 60, 100, 0, 0, 0.5, 20.0, 5, 1, 0.0)
 
@@ -54,11 +53,8 @@ SPRINT_WEIGHTS = (10, 10, 5, 40, 60, 100, 0, 0, 0.5, 20.0, 5, 1, 0.0)
 def device(request):
     if request.param == "cpu":
         torch.set_num_threads(1)
-    elif not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (K1 has no CPU mode)")
-    else:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device(request.param)
+        return torch.device("cpu")
+    return cuda()
 
 
 def h10(**kw):

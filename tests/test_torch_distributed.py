@@ -44,6 +44,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from card_device import cuda_device  # noqa: F401
 from quadruped_tpu_torch import entry
 from quadruped_tpu_torch.distributed import (batch_sharding, make_mesh,
                                              replicated_sharding,
@@ -364,14 +365,6 @@ def test_dryrun_multichip_one_rank(monkeypatch):
                                atol=EXACT_FORCE_TOL)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (K1 and NCCL have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
 @pytest.mark.cuda
 def test_dryrun_multichip_on_the_card(cuda_device):
     """On the card: a one-rank NCCL group, K1 twice (boot and step), the
@@ -387,3 +380,72 @@ def test_dryrun_multichip_on_the_card(cuda_device):
                                                 cuda_device)
     _, _, forces = entry.dryrun_step(cfg, params, sim, ctrl, cmd)
     assert torch.equal(res.forces, forces)
+
+
+@pytest.mark.cuda
+def test_sharded_rollout_on_the_card(cuda_device):
+    """The twin of the JAX test_sharded_closed_loop_rollout_matches_unsharded
+    on a one-rank NCCL group: B=16, 125 ticks, `shard_batch` over the
+    mesh, bit for bit the unsharded rollout, K1 at the boot and once a
+    solve, every robot alive."""
+    from quadruped_tpu_torch.control import mpc as mpc_mod
+    from quadruped_tpu_torch.control import swing as swing_mod
+    from quadruped_tpu_torch.control.desired_state import TwistCommand
+    from quadruped_tpu_torch.control.locomotion import LocomotionConfig
+    from quadruped_tpu_torch.gait import ADVANCED_TROT
+    from quadruped_tpu_torch.sim.rollout import rollout
+    from quadruped_tpu_torch.solvers import fused_admm
+
+    ticks = 125
+    config = LocomotionConfig(
+        mpc=mpc_mod.MpcConfig(horizon=10, qp_iters=24, qp_cold_iters=120),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(cuda_device))
+    params = a1_params(cuda_device)
+    cmds = TwistCommand.constant(
+        vx=np.random.default_rng(7).uniform(0.1, 0.5, 16).astype(np.float32),
+        device=cuda_device)
+    mesh = make_mesh(1, device=cuda_device)
+    assert dist.get_backend() == "nccl"
+    before = fused_admm.fused_admm.launches
+    got = rollout(config, params, shard_batch(mesh, cmds), ticks)
+    torch.cuda.synchronize()
+    assert fused_admm.fused_admm.launches - before == \
+        1 + -(-ticks // config.mpc.ticks_per_solve)
+    want = rollout(config, params, cmds, ticks)
+    for a, b in ((got.alive, want.alive), (got.sim.position, want.sim.position),
+                 (got.forces_trace, want.forces_trace)):
+        assert torch.equal(a, b)
+    assert got.alive.min().item() == 1.0
+
+
+@pytest.mark.cuda
+def test_solve_cone_sp_one_rank_on_the_card(cuda_device):
+    """sp = 1 on a one-rank NCCL group: `solve_cone_sp` on 8 bench problems
+    at the solve-quality bound of tests/test_solver_sp.py against
+    `cone_qp.solve`; and one `scaling_report` reading at one rank
+    (B=1024)."""
+    from quadruped_tpu_torch.solvers import problems
+
+    prob, _ = problems.bench_problems(8, 10, device=cuda_device)
+    mesh = make_mesh(1, device=cuda_device)
+    conv = cone_qp.solve(prob, iters=2000)
+    ref = cone_qp.solve(prob, iters=24, alpha=1.0, accel_restart=20)
+    got = solve_cone_sp(mesh, prob, iters=24)
+    err_ref = (ref.x - conv.x).abs().max().item()
+    err_got = (got.x - conv.x).abs().max().item()
+    assert err_got < err_ref * 1.2 + 0.5, (err_got, err_ref)
+    assert (got.x - ref.x).abs().max().item() < 2.0
+
+    def build(batch, m):
+        p, _ = problems.bench_problems(batch, 10, device=cuda_device)
+        boot = cone_qp.solve(p, iters=400, alpha=1.6)
+
+        def solve(pp):
+            return cone_qp.solve(pp, iters=24, alpha=1.0, accel_restart=20,
+                                 x0=boot.x, y0=boot.y).x[:, :12].reshape(
+                                     -1, 4, 3)
+
+        return sharded_solve_stats(m, solve), (shard_batch(m, p),)
+
+    rep = scaling_report(build, 1024, 1, reps=20, device=cuda_device)
+    assert rep["solves_per_s_1dev"] > 0

@@ -6,8 +6,9 @@ aliengo_wbc_trot 100, fleet_sweep 60, keyboard_teleop two chunks of a
 script, the bridge's dry run and 50 ticks of its UDP loop against a
 loopback MCU in each wire mode) is held to the JAX example's loop on the
 same inputs, kept in tests/data/examples_jax.npz because the card, where
-no JAX is installed, holds its runs to the same traces (chip_smoke.py
-phase 40). JAX still reproduces the fixture here, live. The limits are
+no JAX is installed, holds its runs to the same traces (the `cuda` cases,
+which also hold K1 to one launch a solve and the dense-QP kernel to one a
+QP asked for). JAX still reproduces the fixture here, live. The limits are
 those of the existing tests of the same loops, stated in
 quadruped_tpu_torch/examples/fixture.py: the first 24 ticks of the SRB
 MPC loops at tests/test_torch_rollout.py's, the whole run at 10x JAX's
@@ -42,9 +43,10 @@ import pytest
 import torch
 
 import examples_jax as ej
-from chip_smoke import wire_state_packet
+from card_device import (DEVICES, assert_launches, count_qps,  # noqa: F401
+                         launch_record, launches, on)
 from quadruped_tpu_torch.examples import fixture as fx
-from quadruped_tpu_torch.solvers import cone_qp
+from quadruped_tpu_torch.examples.fixture import wire_state_packet
 
 torch.set_num_threads(1)
 
@@ -59,31 +61,32 @@ def data():
     return np.load(fx.FIXTURE)
 
 
-@functools.lru_cache(maxsize=None)
-def port_run(name: str):
-    """(the short run's traces, the MPC solves it ran: cone_qp.solve
-    calls, each one K1 launch on the card)."""
-    calls = []
-    solve = cone_qp.solve
-    cone_qp.solve = lambda prob, **kw: calls.append(1) or solve(prob, **kw)
-    try:
-        out = (fx.bridge_dry_run("cpu") if name == "bridge_dry_run"
-               else fx.short_run(name, "cpu"))
-    finally:
-        cone_qp.solve = solve
-    return out, len(calls)
+def port_run(name: str, device="cpu"):
+    return (fx.bridge_dry_run(device) if name == "bridge_dry_run"
+            else fx.short_run(name, device))
 
 
 def assert_within(errs: dict):
     assert errs and not fx.over(errs), errs
 
 
+def assert_solves(device, name, ticks, before, asked):
+    """One MPC solve a batched solve tick (the boot's included); on the
+    card, K1 once a solve and the dense-QP kernel once a QP asked for."""
+    k1 = fx.k1_launches(name, ticks)
+    assert asked["solves"] == k1
+    if device != "cpu":
+        assert_launches(before, asked, k1)
+
+
+@pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("name", SRB + ("bridge_dry_run",))
-def test_example_matches_jax(name):
-    out, solves = port_run(name)
+def test_example_matches_jax(name, device, monkeypatch):
+    asked, before = count_qps(monkeypatch), launches()
+    out = port_run(name, on(device))
     assert_within(fx.errors(name, out, data()))
-    assert solves == fx.k1_launches(
-        "hardware_bridge" if name == "bridge_dry_run" else name, out["ticks"])
+    assert_solves(device, "hardware_bridge" if name == "bridge_dry_run"
+                  else name, out["ticks"], before, asked)
 
 
 JAX_RUNS = {"a1_trot": ej.a1_trot, "aliengo_wbc_trot": ej.aliengo_wbc_trot,
@@ -97,17 +100,20 @@ def test_jax_reproduces_the_fixture(name):
     assert_within(fx.errors(name, JAX_RUNS[name](), data()))
 
 
+@pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("wire", fx.WIRES)
-def test_bridge_loop_matches_jax(wire):
+def test_bridge_loop_matches_jax(wire, device, monkeypatch):
     """50 ticks of the UDP loop against a loopback MCU streaming the wire's
     state packet: every tick read it, the MCU got one command a tick (and
     the DeepRobotics handshake and damping stream), the commands are the
     JAX loop's on the rows read (the fixture's, booted from the packet or
     from the empty snapshot)."""
-    out = fx.bridge_run(wire, wire_state_packet(wire), "cpu")
+    asked, before = count_qps(monkeypatch), launches()
+    out = fx.bridge_run(wire, wire_state_packet(wire), on(device))
     errs, _ = fx.bridge_errors(wire, out, data())
     assert_within(errs)
     assert out["jitter_max_us"] >= out["jitter_mean_us"] >= 0.0
+    assert_solves(device, "hardware_bridge", out["ticks"], before, asked)
 
 
 def test_jax_bridge_loop_reproduces_the_fixture():
@@ -167,7 +173,7 @@ def test_fleet_sweep_over_two_ranks(tmp_path):
     keys = ("alive", "base_height_trace", "vel_trace")
     got = {k: np.concatenate([r[k] for r in ranks]) for k in keys}
     assert_within(fx.errors("fleet_sweep", got, data()))
-    whole, _ = port_run("fleet_sweep")
+    whole = port_run("fleet_sweep")
     for k in keys:
         np.testing.assert_array_equal(got[k], whole[k], err_msg=k)
 

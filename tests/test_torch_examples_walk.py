@@ -5,8 +5,9 @@ Each example's `run(device="cpu")` at a short length (whole_body_standup
 200 ticks, viz3d 100, lite3_walk 150, stair_climb and gap_crossing 100) is
 held to the JAX example's loop on the same inputs, kept in
 tests/data/examples_jax.npz (the JAX compiles of these loops would take
-most of this file's time; chip_smoke.py holds the card to the same
-traces). The fixture also keeps each JAX run restarted from the base one
+most of this file's time; the `cuda` cases hold the card to the same
+traces, K1 to one launch a solve and the dense-QP kernel to one a QP
+asked for). The fixture also keeps each JAX run restarted from the base one
 float32 step up (`nudged`), JAX's own spread. The limits, stated in
 quadruped_tpu_torch/examples/fixture.py, are those of the existing tests
 of the same loops: the whole-body trot test_torch_whole_body.py's
@@ -32,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import (DEVICES, assert_launches, count_qps,  # noqa: F401
+                         launch_record, launches, on)
 from quadruped_tpu_torch.examples import fixture as fx
 
 torch.set_num_threads(1)
@@ -45,11 +48,17 @@ def data():
     return np.load(fx.FIXTURE)
 
 
+@pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("name", WALKS)
-def test_example_matches_jax(name):
-    out = fx.short_run(name, "cpu")
+def test_example_matches_jax(name, device, monkeypatch):
+    asked, before = count_qps(monkeypatch), launches()
+    out = fx.short_run(name, on(device))
     errs = fx.errors(name, out, data())
     assert errs and not fx.over(errs), errs
+    k1 = fx.k1_launches(name, out["ticks"])
+    assert asked["solves"] == k1
+    if device != "cpu":
+        assert_launches(before, asked, k1)
 
 
 def test_nudged_runs_spread():

@@ -5,20 +5,22 @@
   tests/test_pallas_admm.py runs it. Both get the same scaled problem and
   the same M^{-1} (the JAX one, unpadded and transposed for the port,
   whose loop takes it as the JAX `solve` does).
-* On the card (marker `cuda`): the CUDA kernel against the plain version at
-  B=256, H=5, 10 and 16 (n = 60, 120, 192), and the boot solve the closed
-  loop runs at unblocked H=16 (n = 192, 400 relaxed iterations) held on
-  its unscaled first-step forces, and the kernel started from a carried
-  z0 (the bf16 head's). This module imports no JAX at module level, so the card test
-  also runs where JAX is absent:
-      python -m pytest --noconftest -p no:cacheprovider -m cuda \
-          tests/test_torch_fused_admm.py
+* On the card (marker `cuda`): the four kernels built together; the CUDA
+  kernel against the plain version at B=256, H=5, 10 and 16 (n = 60,
+  120, 192), at the closed loop's B=2048, on the bench's B=8192 update
+  (cold and seeded), from a carried z0 (the bf16 head's), and on the
+  batches the paths hand it (the fleets', the hil tick's, the
+  examples'); and the boot solve the closed loop runs at unblocked H=16
+  (n = 192, 400 relaxed iterations) held on its unscaled first-step
+  forces. This module imports no JAX at module level, so the card tests
+  also run where JAX is absent (tests/card_device.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from card_device import cuda_device  # noqa: F401
 from quadruped_tpu_torch.solvers import problems
 
 from quadruped_tpu_torch.solvers import cone_qp as tcq
@@ -160,49 +162,217 @@ def test_wrapper_takes_plain_version_on_cpu():
                        inp.x0, inp.y0, iters=1, sigma=tcq.SIGMA, alpha=1.0)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+@pytest.mark.cuda
+def test_the_four_kernels_build_together_on_card(cuda_device):
+    """K1, K2, K3 and the dense-QP kernel, one nvcc each, all started
+    together (`cuda_build.build_shared_libraries`): each library there."""
+    from quadruped_tpu_torch.benchmarks import mxu_rate
+    from quadruped_tpu_torch.solvers import fused_full_solve, qp
+    from quadruped_tpu_torch.utils import cuda_build
+
+    sources = {"fused_admm": tfa.SOURCE,
+               "fused_full_solve": fused_full_solve.SOURCE,
+               "unrolled_dots": mxu_rate.SOURCE, "dense_qp": qp.SOURCE}
+    built = cuda_build.build_shared_libraries(
+        [(src, name) for name, src in sources.items()])
+    assert len(built) == len(sources)
+    for path, _ in built:
+        assert path.is_file(), path
 
 
-# (horizon, iters, alpha, accel_restart): the boot solve's 400 relaxed
-# iterations and the production warm Fast-ADMM scheme at n = 12 H.
-CARD_CASES = [(5, 400, 1.6, 0), (10, 400, 1.6, 0), (5, 24, 1.0, 20),
-              (10, 24, 1.0, 20), (16, 24, 1.0, 20)]
+# The operands the card tests hold K1 on: {case: function of the device
+# returning (operands, kwargs)}.
+def _bench(batch, horizon, iters, alpha, restart, gravity=False):
+    """`bench_problems`: the boot's relaxed cold solve, or the production
+    warm Fast-ADMM scheme started from a cold kernel solve, as the cadence
+    does; `gravity`: the cold start from `gravity_warm_start`, y = 0."""
+    def build(dev):
+        from quadruped_tpu_torch.control import mpc as mpc_mod
+        from quadruped_tpu_torch.robots import a1_params
+        from quadruped_tpu_torch.solvers.problems import bench_problems
+
+        prob, table = bench_problems(batch, horizon=horizon, device=dev)
+        if gravity:
+            inp = tcq.admm_inputs(
+                prob, x0=mpc_mod.gravity_warm_start(a1_params(dev), table),
+                y0=torch.zeros(batch, 4 * horizon, 5, device=dev))
+        else:
+            inp = tcq.admm_inputs(prob)
+        if restart:
+            x0, y0 = tfa.fused_admm(*inp[:8], iters=400, sigma=tcq.SIGMA,
+                                    alpha=1.6)
+            inp = inp._replace(x0=x0, y0=y0)
+        return inp[:8], dict(iters=iters, sigma=tcq.SIGMA, alpha=alpha,
+                             accel_restart=restart)
+    return build
+
+
+def _z0(batch, horizon):
+    """K1 from a carried z0: the bf16 head's state after 4 relaxed
+    iterations, as `cone_qp.solve(bf16_iters=4)` hands it over, then 20
+    relaxed iterations."""
+    def build(dev):
+        from quadruped_tpu_torch.solvers.problems import bench_problems
+
+        prob, _ = bench_problems(batch, horizon=horizon, device=dev)
+        inp = tcq.admm_inputs(prob)
+        x, z, y = tcq.bf16_head(inp, 4, tcq.SIGMA, tcq.ALPHA)
+        return (*inp[:6], x, y), dict(iters=20, sigma=tcq.SIGMA,
+                                      alpha=tcq.ALPHA, z0=z)
+    return build
+
+
+def _bench_update(horizon, seeded):
+    """The B=8192 MPC update of the bench (`bench.build_bench`, route
+    `loop`) as its solve hands it to K1; `seeded`: M^{-1} seeded from the
+    boot's inverse carry, with the rescue (`minv_reuse`)."""
+    def build(dev):
+        from quadruped_tpu_torch import bench
+
+        _, args, cfg = bench.build_bench(8192, "loop", horizon, device=dev,
+                                         minv_reuse=seeded)
+        prob = bench.cadence_problem(cfg, bench.a1_params(dev), *args[:4])
+        kw = dict(iters=cfg.qp_iters, sigma=tcq.SIGMA, alpha=cfg.qp_alpha,
+                  accel_restart=cfg.qp_accel_restart)
+        if not seeded:
+            return tcq.admm_inputs(prob, x0=args[4], y0=args[5])[:8], kw
+        m_mat, inp = tcq.admm_operands(prob, tcq.RHO_CONE, tcq.SIGMA,
+                                       *args[4:6])
+        m_inv = tcq.seeded_inverse(m_mat, args[6], inp.d_t, inp.gamma,
+                                   inp.pinned, tcq.RHO_CONE,
+                                   rescue_iters=tcq.NS_ITERS)
+        return (m_inv, *inp[1:8]), kw
+    return build
+
+
+def _solves(run) -> list:
+    """(ConeQP, kwargs) of every `cone_qp.solve` that run() makes."""
+    got = []
+    solve = tcq.solve
+
+    def spy(prob, **kw):
+        got.append((prob, kw))
+        return solve(prob, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcq, "solve", spy)
+        run()
+    return got
+
+
+def _k1_operands(prob, kw):
+    """K1's (operands, kwargs) as `cone_qp.solve(prob, **kw)` hands them
+    to the kernel."""
+    inp = tcq.admm_inputs(prob, rho=kw.get("rho", tcq.RHO_CONE),
+                          x0=kw.get("x0"), y0=kw.get("y0"))
+    return inp[:8], dict(iters=kw["iters"], sigma=tcq.SIGMA,
+                         alpha=kw.get("alpha", tcq.ALPHA),
+                         accel_restart=kw.get("accel_restart", 0))
+
+
+def captured_k1(run) -> list:
+    """K1's (operands, kwargs) in every `cone_qp.solve` that run() makes."""
+    return [_k1_operands(prob, kw) for prob, kw in _solves(run)]
+
+
+def _fleet(row_mu):
+    """The first warm MPC solve of the heterogeneous fleet at B=2048
+    (benchmarks/fleet.py: four robots' force caps by row); `row_mu`: the
+    same batch with mu drawn per row in [0.3, 0.9]."""
+    def build(dev):
+        import dataclasses
+
+        from quadruped_tpu_torch.benchmarks import fleet
+        from quadruped_tpu_torch.sim import rollout as rollout_mod
+
+        f = fleet.build(128, dev)
+        prob, kw = _solves(lambda: rollout_mod.rollout_segment(
+            f.config, f.params, f.cmd,
+            rollout_mod.rollout_init(f.config, f.params, 2048), 9))[-1]
+        if row_mu:
+            mu = np.random.default_rng(0).uniform(0.3, 0.9, 2048)
+            prob = dataclasses.replace(prob, mu=torch.as_tensor(
+                mu.astype(np.float32), device=dev))
+        return _k1_operands(prob, kw)
+    return build
+
+
+def _wholebody_fleet(dev):
+    """The first warm MPC solve of the four robots' whole-body loop at
+    B=1024 (benchmarks/fleet_paths.py, n = 120)."""
+    from quadruped_tpu_torch.benchmarks import fleet_paths
+
+    return captured_k1(lambda: fleet_paths.run(
+        fleet_paths.build("wholebody", 1024, dev), 9))[-1]
+
+
+def _hil(n):
+    """A warm solve of the hil tick (benchmarks/hil_latency.py) at a fleet
+    of n robots."""
+    def build(dev):
+        from quadruped_tpu_torch.benchmarks import hil_latency as hil
+
+        with hil.HilRig(n, dev) as rig:
+            rig.run(0, warmup=3)
+            calls = captured_k1(lambda: rig.run(9, warmup=0))
+        return next(c for c in calls if c[1]["iters"] == 24)
+    return build
+
+
+def _example(name):
+    """A 40-iteration warm solve of one example (B=1)."""
+    def build(dev):
+        from quadruped_tpu_torch.examples import fixture as fx
+
+        calls = captured_k1(lambda: fx.module(name).run(steps=10,
+                                                        device=dev))
+        return next(c for c in calls if c[1]["iters"] == 40)
+    return build
+
+
+# The closed loop's test size (B=256), production H=10 and H=16 unblocked
+# (the register shape of 768 threads) in the boot's 400 relaxed iterations
+# and the warm Fast-ADMM scheme, and at the closed loop's B=2048 from the
+# gravity start; the bf16 head's z0; the bench's B=8192 update, cold and
+# seeded; and the batches the paths hand K1:
+# the fleet's per-row force caps (and per-row mu), the whole-body fleet's,
+# the hil tick's at B=1 and 16, the examples' at B=1.
+CARD_CASES = {
+    "relaxed_cold-n60": _bench(256, 5, 400, 1.6, 0),
+    "relaxed_cold-n120": _bench(256, 10, 400, 1.6, 0),
+    "accel_warm-n60": _bench(256, 5, 24, 1.0, 20),
+    "accel_warm-n120": _bench(256, 10, 24, 1.0, 20),
+    "accel_warm-n192": _bench(256, 16, 24, 1.0, 20),
+    "relaxed_cold-n120-b2048": _bench(2048, 10, 400, 1.6, 0, gravity=True),
+    "accel_warm-n120-b2048": _bench(2048, 10, 24, 1.0, 20, gravity=True),
+    "z0-n120-b2048": _z0(2048, 10),
+    "bench_update-h10-b8192": _bench_update(10, seeded=False),
+    "bench_update-h16-b8192": _bench_update(16, seeded=False),
+    "seeded_update-h10-b8192": _bench_update(10, seeded=True),
+    "seeded_update-h16-b8192": _bench_update(16, seeded=True),
+    "fleet-b2048": _fleet(row_mu=False),
+    "fleet_row_mu-b2048": _fleet(row_mu=True),
+    "wholebody_fleet-b1024": _wholebody_fleet,
+    "hil-b1": _hil(1),
+    "hil-b16": _hil(16),
+    "example_a1_trot-b1-n120": _example("a1_trot"),
+    "example_aliengo_wbc_trot-b1-n60": _example("aliengo_wbc_trot"),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("horizon,iters,alpha,restart", CARD_CASES,
-                         ids=["relaxed_cold-n60", "relaxed_cold-n120",
-                              "accel_warm-n60", "accel_warm-n120",
-                              "accel_warm-n192"])
-def test_kernel_matches_plain_on_card(cuda_device, horizon, iters, alpha,
-                                      restart):
-    """CUDA kernel vs its plain version on the same card and inputs, B=256,
-    n = 12 H for H = 5, 10 and 16 (the closed loop's test size, production,
-    and H = 16 unblocked, the register shape of 768 threads). Tolerance:
-    max |dx|, |dy| <= 1e-3 + 1e-4 |value| on the scaled iterates — the
-    kernel sums the mat-vec as 8 or 16 partial sums joined by warp
-    shuffles, the plain version in cuBLAS order; nothing else differs. At
-    n = 192 the 400 relaxed iterations of the boot amplify that change of
-    summation order past this tolerance (two float32 orders of the plain
-    loop itself differ as much there), so n = 192 is held in the warm
-    scheme, the one the closed loop runs every period."""
-    from quadruped_tpu_torch.solvers.problems import bench_problems
-
-    prob, _ = bench_problems(256, horizon=horizon, device=cuda_device)
-    inp = tcq.admm_inputs(prob)
-    if restart:  # warm start from a cold kernel solve, as the cadence does
-        x0, y0 = tfa.fused_admm(*inp[:8], iters=400, sigma=tcq.SIGMA,
-                                alpha=1.6)
-        inp = inp._replace(x0=x0, y0=y0)
-    args = inp[:8]
-    kw = dict(iters=iters, sigma=tcq.SIGMA, alpha=alpha,
-              accel_restart=restart)
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_kernel_matches_plain_on_card(cuda_device, case):
+    """CUDA kernel vs its plain version on the same card and operands.
+    Tolerance: max |dx|, |dy| <= 1e-3 + 1e-4 |value| on the scaled
+    iterates — the kernel sums the mat-vec as 8 or 16 partial sums joined
+    by warp shuffles, the plain version in cuBLAS order; nothing else
+    differs. At n = 192 the 400 relaxed iterations of the boot amplify that
+    change of summation order past this tolerance (two float32 orders of
+    the plain loop itself differ as much there), so n = 192 is held in the
+    warm scheme, the one the closed loop runs every period, and its boot
+    below."""
+    args, kw = CARD_CASES[case](cuda_device)
     xk, yk = tfa.fused_admm(*args, **kw)
     xr, yr = tfa.fused_admm_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -241,6 +411,30 @@ def test_kernel_z0_matches_plain_on_card(cuda_device, horizon):
     torch.testing.assert_close(ya, yb, atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.cuda
+def test_bf16_head_solve_on_card_matches_cpu(cuda_device):
+    """`cone_qp.solve(bf16_iters=4, iters=24, ns_f32_polish=2)` on the card
+    (K1 once, for the float32 tail) against the same solve on the CPU,
+    B=256: first-step forces within 0.5% m*g, every force within 3% m*g,
+    duals within 1e-3 + 1e-3 |y| (tests/test_torch_bf16_iters.py's limits
+    against JAX)."""
+    from quadruped_tpu_torch.solvers.problems import bench_problems
+
+    mg = 13.0 * 9.81
+    kw = dict(iters=24, bf16_iters=4, ns_f32_polish=2)
+    prob, _ = bench_problems(256, horizon=10, device=cuda_device)
+    before = tfa.fused_admm.launches
+    got = tcq.solve(prob, **kw)
+    torch.cuda.synchronize()
+    assert tfa.fused_admm.launches - before == 1
+    want = tcq.solve(bench_problems(256, horizon=10, device="cpu")[0], **kw)
+    dx = (got.x.cpu() - want.x).abs()
+    assert dx[:, :12].max().item() <= 0.005 * mg
+    assert dx.max().item() <= 0.03 * mg
+    assert ((got.y.cpu() - want.y).abs() - 1e-3 * want.y.abs()).max() \
+        .item() <= 1e-3
+
+
 def test_boot_problems_are_the_cold_start():
     """`problems.boot_problems` is the solve `mpc_cold_start` runs: solving
     it as the boot does gives mpc_cold_start's forces exactly (CPU, B=4,
@@ -258,19 +452,20 @@ def test_boot_problems_are_the_cold_start():
 
 
 @pytest.mark.cuda
-def test_boot_solve_n192_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("batch", [256, 2048])
+def test_boot_solve_n192_matches_plain_on_card(cuda_device, batch):
     """The closed loop's boot at unblocked MpcConfig(horizon=16): n = 192,
-    400 relaxed iterations (alpha 1.6, no restart), B=256 standing robots
+    400 relaxed iterations (alpha 1.6, no restart), B standing robots
     (`problems.boot_problems`). Kernel and plain version on the same card
     operands; their unscaled first-step forces within 1% m*g, the limit of
     tests/test_torch_rollout.py. (The scaled iterates are held at n <= 120
     only, above: at n = 192 the 400 relaxed iterations amplify the change
     of summation order past 1e-3 + 1e-4 |value|.)"""
-    prob, x0, cfg = problems.boot_problems(256, horizon=16,
+    prob, x0, cfg = problems.boot_problems(batch, horizon=16,
                                            device=cuda_device)
     assert prob.q.shape[1] == 192
     inp = tcq.admm_inputs(prob, x0=x0,
-                          y0=torch.zeros(256, 64, 5, device=cuda_device))
+                          y0=torch.zeros(batch, 64, 5, device=cuda_device))
     kw = dict(iters=cfg.qp_cold_iters, sigma=tcq.SIGMA,
               alpha=cfg.qp_cold_alpha, accel_restart=0)
     xk, yk = tfa.fused_admm(*inp[:8], **kw)

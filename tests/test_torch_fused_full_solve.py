@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import cuda_device  # noqa: F401
 from quadruped_tpu_torch.solvers import cone_qp as tcq
 from quadruped_tpu_torch.solvers import fused_full_solve as tff
 from test_torch_fused_admm import B, H, _jax_problem
@@ -242,44 +243,69 @@ def test_zero_padding_keeps_the_live_block(n):
     assert float((eye - torch.bmm(m_mat, live)).abs().max()) < 5e-3
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+def _bench_operands(batch, horizon, move_block, scheme, dev):
+    """K2's operands, the unscaling d and kwargs of the bench problems
+    (`bench.build_bench`, route `loop`): `cold`, the boot's 400 relaxed
+    iterations from zero; `warm`, the production Fast-ADMM update from the
+    boot's solution; `update`, the bench's timed update at its
+    configuration. Newton-Schulz as cone_qp runs it."""
+    from quadruped_tpu_torch import bench
+
+    _, args, cfg = bench.build_bench(batch, "loop", horizon, move_block,
+                                     device=dev)
+    prob = bench.cadence_problem(cfg, bench.a1_params(dev), *args[:4])
+    warm = (None, None) if scheme == "cold" else args[4:6]
+    m_mat, inp = tcq.admm_operands(prob, tcq.RHO_CONE, tcq.SIGMA, *warm)
+    kw = {"cold": dict(iters=400, alpha=1.6, accel_restart=0),
+          "warm": dict(iters=24, alpha=1.0, accel_restart=20),
+          "update": dict(iters=cfg.qp_iters, alpha=cfg.qp_alpha,
+                         accel_restart=cfg.qp_accel_restart)}[scheme]
+    ops = (m_mat, inp.q, inp.mu, inp.lo, inp.hi, inp.rho, inp.x0, inp.y0)
+    return ops, inp.d, dict(kw, sigma=tcq.SIGMA, ns_iters=tcq.NS_ITERS,
+                            ns_f32_polish=1)
+
+
+# (batch, horizon, move_block, scheme): the closed loop's test size in the
+# boot scheme at n = 120, 96 and 48; the closed loop's B=2048 at H=10 and
+# H=16 (move blocking (4, 2)) in both schemes; the bench's B=8192 update.
+CARD_CASES = {
+    "h10": (256, 10, (), "cold"),
+    "h16_block_4_2": (256, 16, (4, 2), "cold"),
+    "h10_block_6_2": (256, 10, (6, 2), "cold"),
+    "h4": (256, 4, (), "cold"),
+    "h10-b2048-cold": (2048, 10, None, "cold"),
+    "h10-b2048-warm": (2048, 10, None, "warm"),
+    "h16-b2048-cold": (2048, 16, None, "cold"),
+    "h16-b2048-warm": (2048, 16, None, "warm"),
+    "h10-b8192-update": (8192, 10, None, "update"),
+    "h16-b8192-update": (8192, 16, None, "update"),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("horizon,move_block", [(10, ()), (16, (4, 2)),
-                                                (10, (6, 2)), (4, ())],
-                         ids=["h10", "h16_block_4_2", "h10_block_6_2", "h4"])
-def test_kernel_matches_plain_on_card(cuda_device, horizon, move_block):
-    """CUDA kernel vs its plain version on the same card and inputs, B=256,
-    the 400-iteration relaxed boot scheme, n = 120, 96 and 48. The
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_kernel_matches_plain_on_card(cuda_device, case):
+    """CUDA kernel vs its plain version on the same card and inputs. The
     Newton-Schulz residual max|I - M X| of both below 5e-3 (one 3-pass
     polish step leaves ~1e-3 on the hardest problems) and within 1e-4 of
     each other, and the unscaled forces within 0.5 N (0.4% m*g): on the card
     the plain version's bf16 steps are bf16 tensor-core products too
     (`bf16_product`), but the polish and the ADMM loop sum in other orders,
-    which the loop amplifies; nothing else differs."""
-    from quadruped_tpu_torch import bench
-
-    _, args, cfg = bench.build_bench(256, "loop", horizon, move_block,
-                                     device=cuda_device)
-    prob = bench.cadence_problem(cfg, bench.a1_params(cuda_device),
-                                 *args[:4])
-    m_mat, inp = tcq.admm_operands(prob, tcq.RHO_CONE, tcq.SIGMA, None, None)
-    ops = (m_mat, inp.q, inp.mu, inp.lo, inp.hi, inp.rho, inp.x0, inp.y0)
-    kw = dict(ns_iters=11, ns_f32_polish=1, iters=400, sigma=tcq.SIGMA,
-              alpha=1.6)
+    which the loop amplifies; nothing else differs. The bf16 steps alone
+    (no polish, no iteration) sum the same products in the same order in
+    both, and agree bit for bit."""
+    ops, d, kw = _bench_operands(*CARD_CASES[case], cuda_device)
     xk, _, ik = tff.fused_full_solve(*ops, **kw, return_inverse=True)
     xr, _, ir = tff.fused_full_solve_reference(*ops, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(xk).all()
-    eye = torch.eye(m_mat.shape[-1], device=cuda_device)
-    res = [float((eye - torch.bmm(m_mat, inv)).abs().max())
+    eye = torch.eye(ops[0].shape[-1], device=cuda_device)
+    res = [float((eye - torch.bmm(ops[0], inv)).abs().max())
            for inv in (ik, ir)]
     assert max(res) < 5e-3 and abs(res[0] - res[1]) <= 1e-4
-    assert float((xk * inp.d - xr * inp.d).abs().max()) < 0.5
+    assert float((xk * d - xr * d).abs().max()) < 0.5
+    steps = dict(kw, ns_iters=kw["ns_iters"] - kw["ns_f32_polish"],
+                 ns_f32_polish=0, iters=0)
+    _, _, ib = tff.fused_full_solve(*ops, **steps, return_inverse=True)
+    assert torch.equal(ib, tff.newton_schulz_reference(
+        ops[0], steps["ns_iters"], 0))

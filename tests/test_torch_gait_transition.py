@@ -41,8 +41,10 @@ import functools
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
+from card_device import DEVICES, on
 from quadruped_tpu_torch.control import gait_transition as gt
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
@@ -251,21 +253,21 @@ def _summary(res, to_numpy, stride=TRACE_STRIDE):
 
 
 @functools.lru_cache(maxsize=None)
-def _port_loop():
-    config, params = transition_config("cpu"), a1_params("cpu")
+def _port_loop(device="cpu"):
+    config, params = transition_config(device), a1_params(device)
     b = len(SWITCH)
     carry = rollout_mod.rollout_init(config, params, b)
     segs, trans = [], {"phase": [], "active_idx": []}
     for s, steps in enumerate(SEGMENTS):
         cmd = TwistCommand.constant(vx=VX, gait_switch=SWITCH[:, s],
-                                    batch=b, device="cpu")
+                                    batch=b, device=device)
         for _ in range(steps):
             carry, res = rollout_mod.rollout_segment(config, params, cmd,
                                                      carry, 1)
-            trans["phase"].append(carry.ctrl.transition.phase.numpy())
+            trans["phase"].append(carry.ctrl.transition.phase.cpu().numpy())
             trans["active_idx"].append(
-                carry.ctrl.transition.active_idx.numpy())
-            segs.append(_summary(res, lambda x: x.numpy()))
+                carry.ctrl.transition.active_idx.cpu().numpy())
+            segs.append(_summary(res, lambda x: x.cpu().numpy()))
     return segs, {k: np.stack(v, 1) for k, v in trans.items()}
 
 
@@ -310,8 +312,9 @@ def _hold(got, want, keys):
         assert err <= tol, f"{key}: {err} > {tol}"
 
 
-def test_closed_loop_matches_jax():
-    errors = transition.fixture_errors(_loop_view(*_port_loop()),
+@pytest.mark.parametrize("device", DEVICES)
+def test_closed_loop_matches_jax(device):
+    errors = transition.fixture_errors(_loop_view(*_port_loop(on(device))),
                                        np.load(FIXTURE))
     for key, (err, limit) in errors.items():
         assert err <= limit, f"{key}: {err} > {limit}"

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import cuda_device  # noqa: F401
 from quadruped_tpu_torch.benchmarks import hil_latency as hil
 
 torch.set_num_threads(1)
@@ -124,28 +125,111 @@ def test_hil_always_solves_and_summary():
     assert set(s) >= {"within_2ms_tick_budget", "within_15ms_cadence_budget"}
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (K1 has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+# (fleet size, solve mode, ticks): a fleet of 2, and the hil benchmark's
+# fleets of 1 and 16 over its 300 ticks in each mode.
+CARD_CASES = [(2, "cadence", 10)] + [(n, mode, 300) for n in (1, 16)
+                                     for mode in hil.MODES]
 
 
 @pytest.mark.cuda
-def test_hil_tick_on_the_card(cuda_device):
+@pytest.mark.parametrize("n,mode,ticks", CARD_CASES,
+                         ids=[f"b{n}-{mode}-{t}" for n, mode, t in CARD_CASES])
+def test_hil_tick_on_the_card(cuda_device, n, mode, ticks):
     """On the card: the rows reach the device through the pinned staging
-    buffer, K1 launches once on each solve tick and never on a hold tick,
-    every command is finite and every sink served."""
+    buffer, K1 launches once on each solve tick (one in 8 at the cadence,
+    every tick with `solve_mode="always"`) and never on a hold tick,
+    every command is finite and every sink served every tick."""
     from quadruped_tpu_torch.solvers import fused_admm
 
-    with hil.HilRig(2, cuda_device) as rig:
+    with hil.HilRig(n, cuda_device, solve_mode=mode) as rig:
         count, rows, live = rig.fleet.gather_tensor(cuda_device)
-        assert count == 2 and rows.is_cuda and live.is_cuda
+        assert count == n and rows.is_cuda and live.is_cuda
         assert rig.fleet._staged[cuda_device][0].is_pinned()
-        fused_admm.fused_admm.launches = 0
-        res = rig.run(10, warmup=0, record=True)
+        before = fused_admm.fused_admm.launches
+        res = rig.run(ticks, warmup=0, record=True)
+        launches = fused_admm.fused_admm.launches - before
     assert (res["received"] == 1).all()
     assert np.isfinite(res["commands"]).all()
-    assert (res["k1"] == res["solve"]).all() and res["solve"].sum() == 2
-    assert fused_admm.fused_admm.launches == 2
+    solves = ticks if mode == "always" else -(-ticks // 8)
+    assert (res["k1"] == res["solve"]).all() and res["solve"].sum() == solves
+    assert launches == solves
+
+
+def _round_trip(mode: str) -> None:
+    """One loopback round trip through the port's RobotBridge in `mode`:
+    the joint angles decoded from a packet written at the spec offsets,
+    and the command's joint targets and torques (50 N m asked) clipped to
+    the 23 N m limit on the wire."""
+    import socket
+    import struct
+    import time
+
+    from quadruped_tpu_torch.examples.fixture import (_crc32_unitree,
+                                                      wire_state_packet)
+    from quadruped_tpu_torch.runtime import RobotBridge
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        state_port = probe.getsockname()[1]
+    mcu = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    mcu.bind(("127.0.0.1", 0))
+    mcu.settimeout(2.0)
+    bridge = RobotBridge(recv_port=state_port,
+                         send_port=mcu.getsockname()[1], torque_limit=23.0,
+                         wire_mode=mode)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        pkt = wire_state_packet(mode)
+        deadline, n = time.time() + 2.0, 0
+        while n == 0 and time.time() < deadline:
+            tx.sendto(pkt, ("127.0.0.1", state_port))
+            time.sleep(0.01)
+            n, state = bridge.get_state()
+        assert n, f"{mode}: no state decoded"
+        j = np.arange(12)
+        wire = j + 3 - 6 * ((j // 3) % 2)      # FR<->FL, RR<->RL swaps
+        want_q = 1.0 + 0.01 * wire if mode == "deeprobotics" \
+            else 0.3 + 0.01 * j
+        assert np.abs(state["q"] - want_q).max() < 1e-5
+        q = 0.1 * j
+        assert bridge.send_command(q, np.full(12, 60.0), np.zeros(12),
+                                   np.full(12, 5.0), np.full(12, 50.0))
+        data, _ = mcu.recvfrom(4096)
+        if mode == "native":
+            cmd = np.frombuffer(data, np.float32)
+            q_sent, tau = cmd[:12], cmd[48:60]
+        else:
+            if mode == "unitree":
+                assert struct.unpack_from("<I", data, 726)[0] \
+                    == _crc32_unitree(data)
+                at = [11 + 33 * k for k in range(12)]
+            else:
+                at = [12 + 20 * int(w) for w in wire]
+            rows = [struct.unpack_from("<5f", data, a) for a in at]
+            q_sent = np.array([r[0] for r in rows])
+            tau = np.array([r[2] for r in rows])
+        assert np.abs(q_sent - q).max() < 1e-6
+        assert np.all(tau == np.float32(23.0))
+    finally:
+        bridge.close()
+        mcu.close()
+        tx.close()
+
+
+@pytest.mark.cuda
+def test_bridge_on_the_card_machine(cuda_device):
+    """The host library built from native/robot_bridge.cpp with g++ into
+    quadruped_tpu_torch/_build/ (native/libqtpu_bridge.so left as it was),
+    then one loopback round trip per wire mode."""
+    from pathlib import Path
+
+    from quadruped_tpu_torch.utils import host_build
+
+    root = Path(__file__).resolve().parents[1]
+    jax_so = root / "native" / "libqtpu_bridge.so"
+    before = jax_so.stat().st_mtime_ns if jax_so.exists() else None
+    path, _, _ = host_build.build_host_library(force=True)
+    assert path.parent == root / "quadruped_tpu_torch" / "_build"
+    assert (jax_so.stat().st_mtime_ns if jax_so.exists() else None) == before
+    for mode in ("native", "unitree", "deeprobotics"):
+        _round_trip(mode)

@@ -6,8 +6,8 @@ closed loop against the JAX package.
   polish passes): 200 ticks in VELOCITY, 150 in POSITION.
 * The checked-in fixture tests/data/rollout_modes_a1.npz, the JAX package's
   output of the same runs: JAX must still reproduce it, and the port must
-  match it; chip_smoke.py holds the card to the same file, where no JAX is
-  installed.
+  match it, on the CPU and (marker `cuda`, where no JAX is installed) on
+  the card.
 * The twins of the JAX stability checks (tests/test_locomotion_modes.py) on
   the port's runs. (The WALK mode and gait transitions are held in
   tests/test_torch_gait_transition.py.)
@@ -35,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from card_device import on
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
 from quadruped_tpu_torch.control.desired_state import ControlMode, TwistCommand
@@ -60,10 +61,10 @@ TOL = {"position": 2e-4, "base_height_trace": 2e-4, "quat": 5e-4,
        "q": 2e-3, "dq": 5e-2, "foot_anchor": 1e-3}
 
 
-def _port_config(mode):
+def _port_config(mode, device="cpu"):
     return LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=30),
                             swing=swing_mod.SwingConfig(mode=mode),
-                            gait=TROT("cpu"), mode=mode,
+                            gait=TROT(device), mode=mode,
                             force_balance=ForceBalanceConfig())
 
 
@@ -105,13 +106,13 @@ def _jax_run(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _port_run(name):
+def _port_run(name, device="cpu"):
     mode, vx, steps = MODES[name]
-    res = rollout(_port_config(mode), a1_params("cpu"),
+    res = rollout(_port_config(mode, device), a1_params(device),
                   TwistCommand.constant(vx=np.asarray(vx, np.float32),
-                                        body_height=0.27, device="cpu"),
+                                        body_height=0.27, device=device),
                   steps=steps)
-    return _summary(res, lambda t: t.numpy())
+    return _summary(res, lambda t: t.cpu().numpy())
 
 
 def _fixture_view(run):
@@ -154,10 +155,12 @@ def test_rollout_matches_jax(name):
     assert err[held].max() <= 0.01 * MG, err[held].max()
 
 
-@pytest.mark.parametrize("side", ["jax", "port"])
+@pytest.mark.parametrize(
+    "side", ["jax", "port", pytest.param("cuda", marks=pytest.mark.cuda)])
 @pytest.mark.parametrize("name", list(MODES))
 def test_fixture(name, side):
-    """JAX still reproduces the fixture, and the port matches it."""
+    """JAX still reproduces the fixture, and the port matches it on the
+    CPU and on the card."""
     data = np.load(FIXTURE)
     want = {k[len(name) + 1:]: data[k] for k in data.files
             if k.startswith(name + "_")}
@@ -165,7 +168,8 @@ def test_fixture(name, side):
                                                          np.float32))
     assert int(want["ticks"]) == MODES[name][2]
     assert int(data["trace_stride"]) == TRACE_STRIDE
-    run = _jax_run(name) if side == "jax" else _port_run(name)
+    run = (_jax_run(name) if side == "jax" else _port_run(name)
+           if side == "port" else _port_run(name, on(side)))
     _assert_close(_fixture_view(run), want,
                   keys=[k for k in TOL if k in want])
 

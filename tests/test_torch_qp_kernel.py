@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import cuda_device  # noqa: F401
 from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
 from quadruped_tpu_torch.core import linalg
 from quadruped_tpu_torch.solvers import qp
@@ -154,15 +155,6 @@ def test_the_wbc_qps_mix_stance_and_swing():
 
 
 # --- the callers' QPs and the bound -----------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
 
 
 def _wbc_qp(dev, b):
@@ -388,10 +380,17 @@ def test_the_bound_refuses_each_control_on_the_cpu(name, control, budget):
 # --- on the card -----------------------------------------------------------
 
 
+# (caller, batch): each caller's QPs at CARD_BATCH, and the WBC's at the
+# Aliengo sweep's batch.
+CARD_CASES = [(name, CARD_BATCH) for name in QPS] + [("wbc", 131072)]
+CARD_IDS = [f"{name}-b{batch}" if batch != CARD_BATCH else name
+            for name, batch in CARD_CASES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(QPS))
-def test_kernel_matches_plain_on_card(cuda_device, name):
-    args, kw = _qp(name, "cuda", CARD_BATCH)
+@pytest.mark.parametrize("name,batch", CARD_CASES, ids=CARD_IDS)
+def test_kernel_matches_plain_on_card(cuda_device, name, batch):
+    args, kw = _qp(name, "cuda", batch)
     before = qp.admm_solve.launches
     got = qp.admm_solve(*args, **kw)
     assert qp.admm_solve.launches == before + 1
@@ -399,12 +398,12 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(QPS))
-def test_kernel_runs_every_iteration_on_card(cuda_device, name):
+@pytest.mark.parametrize("name,batch", CARD_CASES, ids=CARD_IDS)
+def test_kernel_runs_every_iteration_on_card(cuda_device, name, batch):
     """At SHORT_ITERS each iteration still moves the iterate far beyond
     float32's noise: the kernel meets the bound there and the plain version
     one iteration short does not."""
-    args, kw = _qp(name, "cuda", CARD_BATCH)
+    args, kw = _qp(name, "cuda", batch)
     kw = dict(kw, iters=SHORT_ITERS)
     _assert_as_close_as_plain(f"{name}:short", args, kw,
                               qp.admm_solve(*args, **kw), SHORT_CONTROLS)

@@ -4,8 +4,8 @@
   multiplexing inside the tick) on CPU, port vs JAX, 4 scenarios.
 * The checked-in fixture tests/data/rollout_cadenced_a1_h10.npz: the JAX
   package's `rollout_cadenced` at the production MPC configuration. JAX must
-  still reproduce it, and the port must match it; chip_smoke.py holds the
-  card to the same file, where no JAX is installed.
+  still reproduce it, and the port must match it, on the CPU and (marker
+  `cuda`, where no JAX is installed) on the card.
 * A port-only stability gate, as tests/test_rollout_cadenced.py.
 
 Regenerate the fixture (only when the JAX reference changes on purpose):
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import on
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
 from quadruped_tpu_torch.control.desired_state import TwistCommand
@@ -56,11 +57,11 @@ def _jax_config(horizon, qp_iters):
                swing=js.SwingConfig(), gait=JAT())
 
 
-def _port_config(horizon, qp_iters):
+def _port_config(horizon, qp_iters, device="cpu"):
     kw = {} if qp_iters is None else {"qp_iters": qp_iters}
     return LocomotionConfig(mpc=mpc_mod.MpcConfig(horizon=horizon, **kw),
                             swing=swing_mod.SwingConfig(),
-                            gait=ADVANCED_TROT("cpu"))
+                            gait=ADVANCED_TROT(device))
 
 
 def _jax_cadenced(horizon, qp_iters):
@@ -82,14 +83,15 @@ def _jax_cadenced(horizon, qp_iters):
     return out
 
 
-def _port_cadenced(horizon, qp_iters):
-    res = rollout_cadenced(_port_config(horizon, qp_iters), a1_params("cpu"),
-                           TwistCommand.constant(vx=VX, device="cpu"),
+def _port_cadenced(horizon, qp_iters, device="cpu"):
+    res = rollout_cadenced(_port_config(horizon, qp_iters, device),
+                           a1_params(device),
+                           TwistCommand.constant(vx=VX, device=device),
                            N_PERIODS)
-    out = {f: getattr(res.sim, f).numpy() for f in SIM_FIELDS}
-    out["base_height_trace"] = res.base_height_trace.numpy()
-    out["vel_trace"] = res.vel_trace.numpy()
-    out["alive"] = res.alive.numpy()
+    out = {f: getattr(res.sim, f).cpu().numpy() for f in SIM_FIELDS}
+    out["base_height_trace"] = res.base_height_trace.cpu().numpy()
+    out["vel_trace"] = res.vel_trace.cpu().numpy()
+    out["alive"] = res.alive.cpu().numpy()
     return out
 
 
@@ -134,14 +136,17 @@ def test_rollout_matches_jax():
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("side", ["jax", "port"])
+@pytest.mark.parametrize(
+    "side", ["jax", "port", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_fixture(side):
     """The production-config fixture (H=10, 24 warm Fast-ADMM iterations,
-    400-iteration boot): JAX still reproduces it, the port matches it."""
+    400-iteration boot): JAX still reproduces it, the port matches it on
+    the CPU and on the card."""
     want = dict(np.load(FIXTURE))
     np.testing.assert_array_equal(want["vx"], VX)
     got = (_jax_cadenced(10, None) if side == "jax"
-           else _port_cadenced(10, None))
+           else _port_cadenced(10, None, on("cpu" if side == "port"
+                                            else side)))
     _assert_close(got, want)
 
 

@@ -48,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import DEVICES, on
 from quadruped_tpu_torch.benchmarks import runner as bench_runner
 from quadruped_tpu_torch.control.fsm import FsmState
 from quadruped_tpu_torch.utils.convert import as_numpy, flatten
@@ -204,9 +205,9 @@ def _regenerate():
 
 
 @functools.lru_cache(maxsize=None)
-def _port_windows():
+def _port_windows(device="cpu"):
     data = np.load(FIXTURE)
-    loop, rows, noise = bench_runner.window_loop(data, device="cpu")
+    loop, rows, noise = bench_runner.window_loop(data, device=device)
     ticks = max(w for _, w in CHECKPOINTS.values())
     _, traces = bench_runner.run(loop, ticks, noise=noise, record=True)
     return traces, rows
@@ -231,11 +232,12 @@ def test_fixture_layout_and_noise_stream():
     assert (data["trot/trace/fsm"] == FsmState.LOCOMOTION).all()
 
 
-def test_windows_match_jax():
+@pytest.mark.parametrize("device", DEVICES)
+def test_windows_match_jax(device):
     """FSM states and contact flags equal on every tick of the three
     windows (the switch on the same tick), the rest within 10x JAX's
-    spread."""
-    traces, rows = _port_windows()
+    spread, on the CPU and on the card."""
+    traces, rows = _port_windows(on(device))
     errors = bench_runner.window_errors(np.load(FIXTURE), traces, rows)
     for key, errs in errors.items():
         for k, (err, limit) in errs.items():

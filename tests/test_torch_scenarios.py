@@ -22,8 +22,8 @@
   too: all alive, final heights within 0.06 m of each robot's body
   height. tests/data/fleet_a1.npz keeps JAX's run and spread of both
   grids (`benchmarks/fleet.py` FIXTURE): the live JAX run must still
-  reproduce it, the port must match it, and chip_smoke.py holds the card
-  to it (`fixture:fleet`). Regenerate it only on purpose (~1 min of JAX):
+  reproduce it, and the port must match it on the CPU and (marker
+  `cuda`) on the card. Regenerate it only on purpose (~1 min of JAX):
       PYTHONPATH=. python tests/test_torch_scenarios.py
 * One `locomotion_step` and `srb_sim_step` of a fleet (robots and gait
   tables cycling, vx and wz from a seed) from a mid-trot carry on an MPC
@@ -50,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_device import DEVICES, on
 from quadruped_tpu_torch.benchmarks import fleet as bench_fleet
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
@@ -265,11 +266,12 @@ def test_fleet_rollout_matches_jax(case):
                                atol=0.06)
 
 
+@pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("case", sorted(GRIDS))
-def test_fleet_fixture(case):
-    """The port against tests/data/fleet_a1.npz, as chip_smoke.py holds
-    the card to it."""
-    got = bench_fleet.fixture_run(case, "cpu")
+def test_fleet_fixture(case, device):
+    """The port against tests/data/fleet_a1.npz, on the CPU and on the
+    card."""
+    got = bench_fleet.fixture_run(case, on(device))
     _assert_within(bench_fleet.fixture_errors(
         got, np.load(bench_fleet.FIXTURE), case), case)
 

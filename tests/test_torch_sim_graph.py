@@ -21,6 +21,7 @@
 import pytest
 import torch
 
+from card_device import cuda_device  # noqa: F401
 from quadruped_tpu_torch.benchmarks import fleet
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
@@ -143,15 +144,6 @@ def test_tick_ops_counts_the_sim_stage():
     assert out["other_calls_by_stage"]["srb_sim"] > 0
     assert _delta(before) == (4, 0, 0)      # 3 warm ticks and the counted
     assert srb_sim.srb_sim_step is STEP
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA graphs have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda", 0)
 
 
 def _eager_step(params, state, forces, stance, q_des, dq_des, swing, dt,

@@ -44,8 +44,10 @@ import functools
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
+from card_device import DEVICES, on
 from quadruped_tpu_torch.benchmarks import walk as bench_walk
 from quadruped_tpu_torch.utils import tree
 from quadruped_tpu_torch.utils.convert import flatten
@@ -189,14 +191,14 @@ def _jax_runs():
 
 
 @functools.lru_cache(maxsize=None)
-def _port_windows():
-    loops, rows = bench_walk.window_loops(np.load(FIXTURE), "cpu")
+def _port_windows(device="cpu"):
+    loops, rows = bench_walk.window_loops(np.load(FIXTURE), device)
     traces = {}
     for sim_kind, loop in loops.items():
         _, tr = bench_walk.run(loop, WINDOW, record=True)
         for key, run, kind, _ in _checkpoints():
             if kind == sim_kind:
-                traces[key] = {k: v[rows[key]].numpy()
+                traces[key] = {k: v[rows[key]].cpu().numpy()
                                for k, v in tr.items()}
     return traces
 
@@ -211,8 +213,10 @@ def test_fixture_layout():
         assert data[f"{key}/trace/sub_state"].shape == (4, WINDOW, 4)
 
 
-def test_windows_match_jax():
-    errors = bench_walk.window_errors(np.load(FIXTURE), _port_windows())
+@pytest.mark.parametrize("device", DEVICES)
+def test_windows_match_jax(device):
+    errors = bench_walk.window_errors(np.load(FIXTURE),
+                                      _port_windows(on(device)))
     for key, errs in errors.items():
         for k, value in errs.items():
             if k != "missed":

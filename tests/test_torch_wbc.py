@@ -17,8 +17,8 @@ closed loop against the JAX package.
   qp_iters=40)`, `WbcConfig()`, 200 ticks) against a JAX loop that runs
   the JAX `rollout_segment` tick by tick and keeps the commands' torques
   too, and against the fixture tests/data/rollout_wbc_a1.npz (that JAX
-  output, with the JAX `wbc_step` outputs of the bench_wbc states, which
-  chip_smoke.py holds the card to). The SRB sim does not apply the
+  output, with the JAX `wbc_step` outputs of the bench_wbc states), on
+  the CPU and (marker `cuda`, where no JAX is installed) on the card. The SRB sim does not apply the
   feed-forward torques, so the WBC shows in `tau_trace` only; its sim
   fields are held as tests/test_torch_rollout.py holds them, forces within
   1% m*g (measured 0.37 N), torques within 0.3 N m (measured 0.10).
@@ -35,12 +35,11 @@ import dataclasses
 import functools
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from card_device import on
 from quadruped_tpu_torch.benchmarks import wbc as bench_wbc
 from quadruped_tpu_torch.control import locomotion as loco
 from quadruped_tpu_torch.control import mpc as mpc_mod
@@ -92,6 +91,8 @@ def _jax_bench():
     import importlib
     import sys
 
+    import jax
+
     keys = ("jax_compilation_cache_dir",
             "jax_persistent_cache_min_compile_time_secs")
     saved = {k: getattr(jax.config, k) for k in keys}
@@ -123,6 +124,8 @@ def _contacts():
 def _jax_inputs():
     """The JAX bench_wbc states at B = 8 with the swing masks of
     `_contacts` (JAX obs, cmd), and the JAX params and model."""
+    import jax.numpy as jnp
+
     from quadruped_tpu.dynamics import floating_base as jfb
     from quadruped_tpu.robots import a1_params as ja1
 
@@ -179,6 +182,9 @@ def test_bench_states_equal_jax():
 def test_damped_pinv_matches_jax_and_zero_rows():
     """Wide matrices [8, 3, 18] and [8, 12, 18] with masked (all-zero)
     rows: port vs JAX, and the masked rows' columns exactly zero."""
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.core import linalg as jlinalg
 
     rng = np.random.default_rng(1)
@@ -195,6 +201,8 @@ def test_damped_pinv_matches_jax_and_zero_rows():
 
 
 def test_build_tasks_matches_jax():
+    import jax
+
     from quadruped_tpu.control import wbc as jwbc
 
     jobs, jcmd, _, jmodel = _jax_inputs()
@@ -209,6 +217,9 @@ def test_build_tasks_matches_jax():
 
 def test_multitask_projection_matches_jax():
     """Both on the JAX tasks; the contact rows of swing legs masked."""
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.control import wbc as jwbc
 
     jobs, jcmd, _, jmodel = _jax_inputs()
@@ -230,6 +241,8 @@ def test_multitask_projection_matches_jax():
 
 
 def test_wbic_torque_matches_jax():
+    import jax
+
     from quadruped_tpu.control import wbc as jwbc
 
     jobs, jcmd, jparams, jmodel = _jax_inputs()
@@ -261,6 +274,8 @@ def test_wbic_torque_matches_jax():
 @functools.lru_cache(maxsize=None)
 def _wbc_step_runs():
     """wbc_step outputs: JAX, the port, the port in float64."""
+    import jax
+
     from quadruped_tpu.control import wbc as jwbc
 
     jobs, jcmd, jparams, jmodel = _jax_inputs()
@@ -287,18 +302,20 @@ def test_wbc_step_matches_jax_and_float64(name):
 
 # ------------------------------------------------- the use_wbc loop
 
-def _port_config(use_wbc=True):
+def _port_config(use_wbc=True, device="cpu"):
     return loco.LocomotionConfig(
         mpc=mpc_mod.MpcConfig(horizon=5, qp_iters=40),
-        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT("cpu"),
+        swing=swing_mod.SwingConfig(), gait=ADVANCED_TROT(device),
         wbc=wbc.WbcConfig() if use_wbc else None, use_wbc=use_wbc)
 
 
 def _summary(res_sim, alive, h, v, f, tau):
-    out = {k: np.asarray(getattr(res_sim, k)) for k in SIM_FIELDS}
-    out.update(alive=np.asarray(alive), base_height_trace=np.asarray(h),
-               vel_trace=np.asarray(v), forces_trace=np.asarray(f),
-               tau_trace=np.asarray(tau))
+    def arr(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+    out = {k: arr(getattr(res_sim, k)) for k in SIM_FIELDS}
+    out.update(alive=arr(alive), base_height_trace=arr(h), vel_trace=arr(v),
+               forces_trace=arr(f), tau_trace=arr(tau))
     return out
 
 
@@ -306,6 +323,9 @@ def _summary(res_sim, alive, h, v, f, tau):
 def _jax_run():
     """The JAX rollout with use_wbc, tick by tick as its rollout_segment
     runs it, keeping each tick's hybrid-command torques."""
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.control import mpc as jm
     from quadruped_tpu.control import swing as js
     from quadruped_tpu.control import wbc as jwbc
@@ -355,7 +375,7 @@ def _jax_run():
 
 
 @functools.lru_cache(maxsize=None)
-def _port_run(use_wbc=True):
+def _port_run(use_wbc=True, device="cpu"):
     """The port's rollout, with the sequence of MPC solves, WBC calls and
     ticks it made."""
     events = []
@@ -373,9 +393,9 @@ def _port_run(use_wbc=True):
     rollout_mod.locomotion_step = logged("tick", originals[2])
     try:
         res = rollout_mod.rollout(
-            _port_config(use_wbc), a1_params("cpu"),
+            _port_config(use_wbc, device), a1_params(device),
             TwistCommand.constant(vx=np.asarray(VX, np.float32),
-                                  body_height=0.27, device="cpu"), TICKS)
+                                  body_height=0.27, device=device), TICKS)
     finally:
         (mpc_mod.mpc_solve, wbc.wbc_step,
          rollout_mod.locomotion_step) = originals
@@ -417,28 +437,35 @@ def test_wbc_rollout_matches_jax():
     assert np.all(got["alive"] == 1.0)
 
 
-@pytest.mark.parametrize("side", ["jax", "port"])
+SIDES = ["jax", "port", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+@pytest.mark.parametrize("side", SIDES)
 def test_fixture(side):
-    """JAX still reproduces the fixture, and the port matches it."""
+    """JAX still reproduces the fixture, and the port matches it on the
+    CPU and on the card."""
     data = dict(np.load(FIXTURE))
     np.testing.assert_array_equal(data["vx"], np.asarray(VX, np.float32))
     assert int(data["ticks"]) == TICKS
     assert int(data["trace_stride"]) == TRACE_STRIDE
-    run = _jax_run() if side == "jax" else _port_run()[0]
+    run = (_jax_run() if side == "jax" else _port_run()[0] if side == "port"
+           else _port_run(True, on(side))[0])
     _assert_close(_fixture_view(run), data)
 
 
-@pytest.mark.parametrize("side", ["jax", "port"])
+@pytest.mark.parametrize("side", SIDES)
 def test_wbc_tick_fixture(side):
     """wbc_step on the bench_wbc states (B = 8, four contacts): JAX still
-    gives the fixture's outputs, and the port matches them."""
+    gives the fixture's outputs, and the port matches them on the CPU and
+    on the card."""
     data = np.load(FIXTURE)
     if side == "jax":
         step, args = _jax_bench().build(B)
         outs = [np.asarray(o) for o in step(*args)]
     else:
-        step, args = bench_wbc.build(B, device="cpu")
-        outs = [o.numpy() for o in step(*args)]
+        step, args = bench_wbc.build(B, device=on(
+            "cpu" if side == "port" else side))
+        outs = [o.cpu().numpy() for o in step(*args)]
     for name, out in zip(("q_des", "dq_des", "tau"), outs):
         assert _max_err(out, data[f"wbc_tick_{name}"]) <= WBC_TOL[name]
 

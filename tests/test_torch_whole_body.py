@@ -13,8 +13,8 @@ benchmarks/bench_whole_body.py loop).
   controller), against JAX.
 * The closed loop (4 scenarios, 150 ticks, `MpcConfig(horizon=5,
   qp_iters=24, qp_cold_iters=120)`) against JAX and against the fixture
-  tests/data/whole_body_a1.npz (JAX's output, which chip_smoke.py holds the
-  card to). The stiff contact (k = 8000 N/m) makes the loop chaotic: moving
+  tests/data/whole_body_a1.npz (JAX's output; on the CPU and, marker
+  `cuda`, on the card). The stiff contact (k = 8000 N/m) makes the loop chaotic: moving
   JAX's own start height by 3e-8 m (one float32 step) moves its height
   trace by 6.1e-5 m, its forward speed by 1.4e-3 m/s and its joint speeds
   by 3.8 rad/s within 150 ticks (the first two held by
@@ -34,12 +34,11 @@ import dataclasses
 import functools
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from card_device import on
 from quadruped_tpu_torch.benchmarks import whole_body as twb
 from quadruped_tpu_torch.control import mpc as mpc_mod
 from quadruped_tpu_torch.control import swing as swing_mod
@@ -122,6 +121,8 @@ def _rand_fb(seed, batch=B, zero_vel=False, height=0.3):
 
 
 def _fb_pair(arrays):
+    import jax.numpy as jnp
+
     from quadruped_tpu.dynamics import floating_base as jfb
 
     jstate = jfb.FbState(**{k: jnp.asarray(v) for k, v in arrays.items()})
@@ -180,6 +181,8 @@ SPATIAL_CASES = {
 
 @pytest.mark.parametrize("name", list(SPATIAL_CASES))
 def test_spatial_matches_jax(name):
+    import jax.numpy as jnp
+
     from quadruped_tpu.dynamics import spatial as jsp
 
     x = _spatial_inputs()
@@ -193,6 +196,8 @@ def test_spatial_matches_jax(name):
 
 def _fb_cases():
     """name -> (JAX function of (model, state, extra), port function)."""
+    import jax.numpy as jnp
+
     from quadruped_tpu.dynamics import floating_base as jfb
 
     def both(fn_name, pick=None, *extra):
@@ -235,6 +240,9 @@ def _fb_cases():
                                   "forward_dynamics",
                                   "forward_dynamics_no_feet"])
 def test_floating_base_matches_jax(name):
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.dynamics import floating_base as jfb
 
     _, jmodel = _jax()
@@ -296,6 +304,8 @@ TERRAINS = {
 def test_terrain_matches_jax(name):
     """Each height field on 8 x 4 points in [-0.5, 2.5] x [-0.5, 0.5],
     shared parameters, and through `named`."""
+    import jax.numpy as jnp
+
     from quadruped_tpu.sim import terrain as jterrain
 
     rng = np.random.default_rng(4)
@@ -313,6 +323,9 @@ def test_terrain_matches_jax(name):
 def test_terrain_parameters_per_scenario():
     """A [B] parameter gives scenario b the field of parameter b (JAX: one
     closure per scenario under vmap)."""
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.sim import terrain as jterrain
 
     rng = np.random.default_rng(5)
@@ -371,6 +384,9 @@ def _stand_arrays(batch):
 @functools.lru_cache(maxsize=None)
 def _jax_step_fn(steps: int):
     """jit(vmap) of `steps` JAX whole_body_step ticks from (state, cmd)."""
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.sim import whole_body as jwb
 
     params, model = _jax()
@@ -394,6 +410,8 @@ def _jax_steps(steps: int, stand: bool, dh: float = 0.0):
     """JAX whole_body_step, `steps` ticks: from the random near-ground
     states of seed 6 under the seed-7 command, or with `stand` from
     `_drop_fb` under the stand command; the start heights raised by dh."""
+    import jax.numpy as jnp
+
     from quadruped_tpu.control.types import HybridCommand as JHC
 
     states = _drop_fb() if stand else _rand_fb(6, height=0.27)
@@ -423,6 +441,8 @@ def _port_steps(steps: int, stand: bool):
 def test_contact_forces_match_jax():
     """Penalty forces, flags and foot points of random states whose feet
     straddle the ground (base 0.27 m +/- 0.1 m, joints at random)."""
+    import jax
+
     from quadruped_tpu.sim import whole_body as jwb
 
     _, jmodel = _jax()
@@ -458,6 +478,9 @@ def test_whole_body_50_ticks_match_jax():
 
 
 def test_observe_matches_jax():
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.sim import whole_body as jwb
 
     params, jmodel = _jax()
@@ -485,6 +508,9 @@ def _loop_config_kw():
 def _jax_loop_fn():
     """jit(vmap) of the JAX whole-body closed loop from (vx, dh): the
     robots start dh above their stand height."""
+    import jax
+    import jax.numpy as jnp
+
     from quadruped_tpu.control import mpc as jm
     from quadruped_tpu.control import swing as js
     from quadruped_tpu.control.desired_state import TwistCommand as JTC
@@ -523,6 +549,8 @@ def _jax_loop_fn():
 
 @functools.lru_cache(maxsize=None)
 def _jax_loop(dh: float = 0.0):
+    import jax.numpy as jnp
+
     s, h, v = _jax_loop_fn()(jnp.asarray(LOOP_VX, jnp.float32),
                              jnp.float32(dh))
     out = {k: np.asarray(getattr(s, k)) for k in FB_FIELDS}
@@ -532,15 +560,15 @@ def _jax_loop(dh: float = 0.0):
 
 
 @functools.lru_cache(maxsize=None)
-def _port_loop():
+def _port_loop(device="cpu"):
     config = LocomotionConfig(mpc=mpc_mod.MpcConfig(**_loop_config_kw()),
                               swing=swing_mod.SwingConfig(),
-                              gait=ADVANCED_TROT("cpu"))
-    loop = twb.build(len(LOOP_VX), "cpu", config, LOOP_VX)
+                              gait=ADVANCED_TROT(device))
+    loop = twb.build(len(LOOP_VX), device, config, LOOP_VX)
     loop, (h, v) = twb.run(loop, LOOP_TICKS)
-    out = {k: getattr(loop.sim.fb, k).numpy() for k in FB_FIELDS}
-    out["height_trace"] = h.numpy()
-    out["vx_trace"] = v.numpy()
+    out = {k: getattr(loop.sim.fb, k).cpu().numpy() for k in FB_FIELDS}
+    out["height_trace"] = h.cpu().numpy()
+    out["vx_trace"] = v.cpu().numpy()
     return out
 
 
@@ -556,13 +584,16 @@ def test_closed_loop_matches_jax():
     assert np.all(got["height_trace"] > 0.2)
 
 
-@pytest.mark.parametrize("side", ["jax", "port"])
+@pytest.mark.parametrize(
+    "side", ["jax", "port", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_closed_loop_fixture(side):
-    """JAX still reproduces the fixture, and the port matches it."""
+    """JAX still reproduces the fixture, and the port matches it on the
+    CPU and on the card."""
     data = dict(np.load(FIXTURE))
     np.testing.assert_array_equal(data["vx"], np.asarray(LOOP_VX, np.float32))
     assert int(data["ticks"]) == LOOP_TICKS
-    _assert_loop_close(_jax_loop() if side == "jax" else _port_loop(), data)
+    _assert_loop_close(_jax_loop() if side == "jax" else _port_loop()
+                       if side == "port" else _port_loop(on(side)), data)
 
 
 # One float32 step of a start height in [0.25, 0.5) m.

@@ -1,7 +1,8 @@
 """The twins of the JAX package's physical checks of the whole-body model
 and simulator, run on the port (CPU): tests/test_floating_base.py,
 test_whole_body_sim.py, test_whole_body_contact.py (without the 1000-tick
-cross-simulator trot, which chip_smoke.py runs on the card) and
+cross-simulator trot, which tests/test_torch_loops_whole_body.py runs on
+the card) and
 test_whole_body_batch.py, with the JAX tests' own limits. The sim checks
 share one batched run of 11 scenarios, each with its own start height,
 command gains, contact damping (a per-scenario ContactModel) and terrain
