@@ -12,11 +12,15 @@ it. One JSON line a reading, the card's name and power limit first:
   8192, with its inverse stage alone and `torch.linalg.inv` of the same M
   as a yardstick the port never calls;
 * the dense-QP kernel (`solvers/qp.py::admm_solve`) on the WBC's QPs at
-  the Aliengo sweep's batch.
+  the Aliengo sweep's batch;
+* the Newton-Schulz inverse's kernel (`solvers/cone_qp.py::
+  newton_schulz_inverse`) on the update's M (n = 120) and the Aliengo's
+  (n = 60) at the batches of the update, both sweeps, the hil fleet and
+  the B=1 tick, the larger batches as copies of a B=8192 draw.
 
 K3's readings are `benchmarks/mxu_rate.py`'s. The tests hold each kernel
 to its plain version (tests/test_torch_fused_admm.py, _fused_full_solve.py,
-_qp_kernel.py); this module only times them.
+_qp_kernel.py, _ns_inverse.py); this module only times them.
 """
 
 from __future__ import annotations
@@ -44,6 +48,10 @@ K1_SHAPES = (("warm solve", 2048, 10, 24, 1.0, 20),
              ("example a1_trot", 1, 10, 40, 1.0, 20),
              ("example aliengo_wbc_trot", 1, 5, 40, 1.0, 20))
 DENSE_QP_BATCH = 131072
+# The inverse's shapes: (what, batch, n).
+NS_SHAPES = (("update", 8192, 120), ("A1 sweep", 65536, 120),
+             ("Aliengo sweep", 131072, 60), ("hil fleet", 16, 120),
+             ("B=1 tick", 1, 120))
 
 
 def bound(bytes_moved: float, ops: dict) -> tuple[float, str]:
@@ -67,10 +75,17 @@ def admm_work(batch: int, n: int, iters: int) -> tuple[float, dict]:
     return 4.0 * batch * floats, {"f32": float(batch * ops)}
 
 
-def newton_schulz_ops(batch: int, n: int, ns_bf16: int, ns_f32: int) -> dict:
-    """bf16 tensor-core operations of the inverse: two n x n products a
-    step, one pass each in the bf16 steps and three in the 3-pass polish."""
-    return {"bf16": float(batch * (2 * ns_bf16 + 6 * ns_f32) * 2 * n ** 3)}
+def newton_schulz_ops(batch: int, n: int, ns_bf16: int, ns_f32: int,
+                      split_polish: bool = True) -> dict:
+    """Operations of the inverse: two n x n products a step, one bf16
+    tensor-core pass each in the bf16 steps; in the polish three bf16
+    passes (K2's split) or, with `split_polish` off, one float32 pass
+    (`cone_qp.newton_schulz_inverse`'s float32 polish)."""
+    bf16 = 2 * ns_bf16 + (6 * ns_f32 if split_polish else 0)
+    ops = {"bf16": float(batch * bf16 * 2 * n ** 3)}
+    if not split_polish:
+        ops["f32"] = float(batch * ns_f32 * 4 * n ** 3)
+    return ops
 
 
 def dense_qp_work(batch: int, n: int, m: int,
@@ -204,6 +219,37 @@ def dense_qp_readings(dev) -> list:
                     dense_qp_work(b, n, m, kw["iters"]))]
 
 
+def ns_inverse_readings(dev) -> list:
+    from quadruped_tpu_torch.robots import aliengo_params
+    from quadruped_tpu_torch.solvers import cone_qp, problems
+
+    def m_of(prob, x0=None):
+        return cone_qp.admm_operands(prob, cone_qp.RHO_CONE, cone_qp.SIGMA,
+                                     x0, None)[0]
+
+    draw = {120: m_of(problems.bench_problems(8192, horizon=10,
+                                              device=dev)[0]),
+            60: m_of(*problems.boot_problems(8192, horizon=5, device=dev,
+                                             robot=aliengo_params)[:2])}
+    iters, polish = cone_qp.NS_ITERS, 1
+    out = []
+    for what, batch, n in NS_SHAPES:
+        src = draw[n]
+        m = (src[:batch] if batch <= src.shape[0]
+             else src.repeat(batch // src.shape[0], 1, 1))
+        out.append(reading(
+            "newton_schulz_inverse",
+            f"{what}: B={batch}, n={n}, {iters - polish} bf16 + {polish} "
+            f"float32 steps",
+            lambda: cone_qp.newton_schulz_inverse(m, iters, polish),
+            lambda: cone_qp.newton_schulz_inverse_reference(m, iters, polish),
+            (8.0 * batch * n * n,    # M read, X written (float32)
+             newton_schulz_ops(batch, n, iters - polish, polish,
+                               split_polish=False))))
+        del m
+    return out
+
+
 def readings():
     """Every reading, one dict a kernel and shape, the card's line first
     (its name and power limit, torch and CUDA); TF32 off for every float32
@@ -216,7 +262,8 @@ def readings():
     dev = torch.device("cuda", 0)
     yield {"card": card.name_and_power_limit(), "torch": torch.__version__,
            "cuda": torch.version.cuda}
-    for rows in (k1_readings, k2_readings, dense_qp_readings):
+    for rows in (k1_readings, k2_readings, dense_qp_readings,
+                 ns_inverse_readings):
         yield from rows(dev)
 
 

@@ -3,8 +3,9 @@
 Same scheme as the JAX `solve`: per-triple scalar equilibration with cost
 normalization, per-row rho with a 100x boost on pinned fz rows,
 M = gamma d P d + sigma I + blockdiag(A^T rho A), a mixed-precision
-Newton-Schulz inverse of M (plain `torch.matmul`, as the JAX package leaves
-it to XLA outside any kernel), then the ADMM loop. The loop is the
+Newton-Schulz inverse of M (on the card one kernel, csrc/newton_schulz.cu,
+where the JAX package leaves it to XLA; torch ops on the CPU and for
+n > 128), then the ADMM loop. The loop is the
 `fused_admm` kernel (solvers/fused_admm.py), whose mat-vec is the JAX
 `solve`'s M^{-1} rhs (the Pallas loop of `solve_fused` contracts over the
 first index, M^{-T} rhs, which differs by the inverse's asymmetry); the
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +39,7 @@ import torch
 from quadruped_tpu_torch.solvers.fused_admm import (_apply_a, _apply_at,
                                                     fused_admm)
 from quadruped_tpu_torch.solvers.fused_full_solve import fused_full_solve
+from quadruped_tpu_torch.utils import cuda_build
 from quadruped_tpu_torch.utils.logging import span
 
 SIGMA = 1e-6
@@ -49,6 +52,19 @@ BIG = 1e8
 # single-polish inverse leaves (max|I - MX| ~1e-3), far below a diverged
 # polish.
 RESCUE_RESID = 1e-2
+NS_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "newton_schulz.cu"
+# Largest n the inverse's kernel takes (its 128 tile). A larger M, only the
+# unblocked H = 16 MPC's (n = 192), keeps the torch ops on every device.
+NS_MAX_N = 128
+# cuBLAS (12.8, TF32 off, on the H100) multiplies a batch of matrices in
+# chunks of at most 65535, and a lone matrix, a batch or last chunk of one,
+# by split-K: each entry chains over k-slices of LONE_SPLIT[n] k's, each
+# from zero, summed in order (cutlass's SIMT sgemm and splitKreduce; read
+# on the card, every n = 12 G but 12, whose order is not found). The
+# inverse's kernel follows it for such a matrix.
+CUBLAS_BATCH_CHUNK = 65535
+LONE_SPLIT = {24: 8, 36: 12, 48: 12, 60: 4, 72: 8, 84: 8, 96: 32, 108: 8,
+              120: 8}
 
 
 @dataclasses.dataclass
@@ -152,15 +168,16 @@ def _newton_schulz_steps(m: torch.Tensor, x: torch.Tensor, n_bf: int,
     return x
 
 
-def newton_schulz_inverse(m: torch.Tensor, iters: int = NS_ITERS,
-                          f32_polish: int = 2) -> torch.Tensor:
+def newton_schulz_inverse_reference(m: torch.Tensor, iters: int = NS_ITERS,
+                                    f32_polish: int = 2) -> torch.Tensor:
     """Batched SPD inverse by Newton-Schulz, X <- X (2I - M X), X0 = I/||M||_inf.
 
     All but the last `f32_polish` steps carry X in bf16 and take float32
     products of the bf16 operands before the subtraction (the JAX code's
     preferred_element_type=float32); the polish steps run in full float32.
     Callers on the card keep TF32 off, so the float32 products are exact
-    products of the bf16 values.
+    products of the bf16 values. The plain version of
+    `newton_schulz_inverse`'s kernel, in torch ops.
     """
     n = m.shape[-1]
     norminf = torch.amax(torch.sum(torch.abs(m), dim=-1), dim=-1)
@@ -168,6 +185,113 @@ def newton_schulz_inverse(m: torch.Tensor, iters: int = NS_ITERS,
     x_bf = (torch.eye(n, dtype=torch.bfloat16, device=m.device)
             / norminf.to(torch.bfloat16)[..., None, None])
     return _newton_schulz_steps(m, x_bf, n_bf, iters - n_bf)
+
+
+def ns_layout(n: int) -> tuple[int, int, int]:
+    """(tile, ld, shared bytes a block) of the inverse's kernel at n = 12 G
+    <= NS_MAX_N (csrc/newton_schulz.cu). The tile: 64 for n <= 64, else
+    128. ld, the row stride of its three float32 n x ld buffers (M, X,
+    T): the first multiple of 4 from n at which the A reads of up to 8 row
+    groups of a warp fall in distinct banks, (r ld) mod 32 distinct for
+    r < 8."""
+    tile = 64 if n <= 64 else 128
+    ld = n
+    while len({(r * ld) % 32 for r in range(8)}) < 8:
+        ld += 4
+    return tile, ld, 3 * n * ld * 4
+
+
+def check_inverse_input(m: torch.Tensor) -> None:
+    """Raise on an M the inverse's kernel does not take: [..., n, n],
+    float32, contiguous, n = 12 G <= NS_MAX_N."""
+    if m.dim() < 2 or m.shape[-1] != m.shape[-2]:
+        raise ValueError(f"m: shape {tuple(m.shape)}, expected [..., n, n]")
+    if m.dtype != torch.float32:
+        raise TypeError(f"m: dtype {m.dtype}, expected float32")
+    if not m.is_contiguous():
+        raise ValueError("m is not contiguous")
+    n = m.shape[-1]
+    if n % 12 or n > NS_MAX_N:
+        raise ValueError(f"n = {n}: the kernel takes n = 12 G <= {NS_MAX_N}")
+
+
+@functools.lru_cache(maxsize=None)
+def _ns_library():
+    import ctypes
+
+    path, _ = cuda_build.build_shared_library(NS_SOURCE, "newton_schulz")
+    lib = ctypes.CDLL(str(path))
+    lib.newton_schulz_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.newton_schulz_launch.restype = ctypes.c_int
+    return lib
+
+
+def newton_schulz_inverse(m: torch.Tensor, iters: int = NS_ITERS,
+                          f32_polish: int = 2) -> torch.Tensor:
+    """Batched SPD inverse by Newton-Schulz, X <- X (2I - M X), X0 = I/||M||_inf,
+    `iters` steps of which the last `f32_polish` are float32: the
+    arithmetic of `newton_schulz_inverse_reference`.
+
+    The route, by device and shape: CPU tensors, and M larger than the
+    kernel's tile (n > NS_MAX_N, on every device), take the torch ops of
+    `newton_schulz_inverse_reference`. A CUDA tensor of n <= NS_MAX_N
+    launches the kernel (csrc/newton_schulz.cu; built with nvcc at the
+    first launch), one launch a call after the torch ops of X0's diagonal,
+    or raises (`check_inverse_input`); it never falls back to the torch
+    ops. The kernel sums every product in the order cuBLAS does with TF32
+    off, a lone matrix's too (`lone_split`), so on the card it returns
+    what the torch ops return, bit for bit, for the cuBLAS the card tests
+    ran with. `newton_schulz_inverse.launches` counts the calls that
+    launch the kernel.
+    """
+    n = m.shape[-1]
+    if m.device.type == "cpu" or n > NS_MAX_N:
+        return newton_schulz_inverse_reference(m, iters, f32_polish)
+    if m.device.type != "cuda":
+        raise ValueError(f"newton_schulz_inverse: no kernel for device "
+                         f"{m.device}")
+    check_inverse_input(m)
+    batch = m.numel() // (n * n)
+    if m.data_ptr() % 16:
+        m = m.clone()
+    x = _ns_launch(m.reshape(batch, n, n), iters, f32_polish,
+                   lone_split(batch, n))
+    newton_schulz_inverse.launches += 1
+    return x.reshape(m.shape)
+
+
+newton_schulz_inverse.launches = 0
+
+
+def lone_split(batch: int, n: int) -> int:
+    """The k-slice of the last problem's products where cuBLAS multiplies
+    it alone (B = 1 mod CUBLAS_BATCH_CHUNK), else 0: one chain."""
+    if batch % CUBLAS_BATCH_CHUNK != 1:
+        return 0
+    return LONE_SPLIT.get(n, 0)
+
+
+def _ns_launch(flat: torch.Tensor, iters: int, f32_polish: int,
+               split: int) -> torch.Tensor:
+    """The inverse's kernel on [B, n, n] float32 (16-byte aligned,
+    contiguous), the last problem's products in k-slices of `split` where
+    it is above 0 (`lone_split`)."""
+    n = flat.shape[-1]
+    # X0's diagonal as newton_schulz_inverse_reference divides it.
+    norminf = torch.amax(torch.sum(torch.abs(flat), dim=-1), dim=-1)
+    x0 = (torch.ones(1, 1, dtype=torch.bfloat16, device=flat.device)
+          / norminf.to(torch.bfloat16)[:, None, None]).to(flat.dtype)
+    x = torch.empty_like(flat)
+    n_bf = max(iters - f32_polish, 0)
+    err = _ns_library().newton_schulz_launch(
+        flat.data_ptr(), x0.data_ptr(), x.data_ptr(), flat.shape[0], n,
+        *ns_layout(n), n_bf, iters - n_bf, split,
+        torch.cuda.current_stream(flat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"newton_schulz kernel launch failed: CUDA error "
+                           f"{err}")
+    return x
 
 
 def _capacitance_inverse(s_cap: torch.Tensor,

@@ -63,13 +63,15 @@ def stance_table(batch: int, horizon: int) -> np.ndarray:
 
 
 def boot_states(batch: int, horizon: int = 16, seed: int = 0,
-                device=None):
+                device=None, robot=a1_params):
     """The arguments of `mpc_cold_start` (MpcConfig, params, gait config,
-    gait state, MPC state, observation, desired state) for B standing A1
-    robots at `MpcConfig(horizon=horizon)` (unblocked: n = 12 H), each
-    started 0.25-0.31 m up with its attitude N(0, 0.05) rad, joints
-    N(0, 0.05) rad off the stand angles and base velocities N(0, 0.1), as
-    after a reset. On the card unless `device` says otherwise."""
+    gait state, MPC state, observation, desired state) for B standing
+    robots (`robot`: a factory of robots/params.py, the A1's by default)
+    at `MpcConfig(horizon=horizon)` (unblocked: n = 12 H), each started
+    its body height +-0.03 m up (the A1: 0.25-0.31 m) with its attitude
+    N(0, 0.05) rad, joints N(0, 0.05) rad off the stand angles and base
+    velocities N(0, 0.1), as after a reset. On the card unless `device`
+    says otherwise."""
     from quadruped_tpu_torch.control import mpc as mpc_mod
     from quadruped_tpu_torch.control.desired_state import desired_state_init
     from quadruped_tpu_torch.gait import ADVANCED_TROT
@@ -78,15 +80,18 @@ def boot_states(batch: int, horizon: int = 16, seed: int = 0,
 
     device = card.resolve(device)
     rng = np.random.default_rng(seed)
-    params = a1_params(device)
+    params = robot(device)
     config = mpc_mod.MpcConfig(horizon=horizon)
+    # Rounded, so that the A1's (0.28 m) are the literals 0.25 and 0.31.
+    height = float(params.body_height)
+    lo, hi = round(height - 0.03, 4), round(height + 0.03, 4)
 
     def draw(*shape, scale):
         return torch.as_tensor((rng.normal(size=shape) * scale)
                                .astype(np.float32), device=device)
 
     sim = srb_sim.srb_sim_init(params, batch, body_height=torch.as_tensor(
-        rng.uniform(0.25, 0.31, batch).astype(np.float32), device=device))
+        rng.uniform(lo, hi, batch).astype(np.float32), device=device))
     sim = dataclasses.replace(
         sim, quat=se3.rpy_to_quat(draw(batch, 3, scale=0.05)),
         q=sim.q + draw(batch, 12, scale=0.05),
@@ -100,14 +105,14 @@ def boot_states(batch: int, horizon: int = 16, seed: int = 0,
 
 
 def boot_problems(batch: int, horizon: int = 16, seed: int = 0,
-                  device=None):
+                  device=None, robot=a1_params):
     """The boot solve of `boot_states`: (ConeQP, primal start [B, n],
     MpcConfig). The solve takes a zero dual start,
     config.qp_cold_iters iterations at alpha config.qp_cold_alpha and no
     restart."""
     from quadruped_tpu_torch.control import mpc as mpc_mod
 
-    args = boot_states(batch, horizon, seed, device)
+    args = boot_states(batch, horizon, seed, device, robot)
     prob, x0 = mpc_mod.cold_start_problem(*args)
     return prob, x0, args[0]
 

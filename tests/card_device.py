@@ -62,9 +62,12 @@ def launch_record(request):
 def launches() -> dict:
     """Each kernel wrapper's launches so far, by kernel."""
     from quadruped_tpu_torch.benchmarks import mxu_rate
-    from quadruped_tpu_torch.solvers import fused_admm, fused_full_solve, qp
+    from quadruped_tpu_torch.solvers import (cone_qp, fused_admm,
+                                             fused_full_solve, qp)
 
     return {"fused_admm": fused_admm.fused_admm.launches,
+            "newton_schulz_inverse":
+                cone_qp.newton_schulz_inverse.launches,
             "fused_full_solve": fused_full_solve.fused_full_solve.launches,
             "unrolled_dots": mxu_rate.unrolled_dots.launches,
             "dense_qp": qp.admm_solve.launches}
@@ -77,7 +80,7 @@ def count_qps(monkeypatch) -> dict:
     `polish.solve_factored` one a call, the pose planner's
     `plan_target_pose_sqp` one a SQP step; the SQP's calls also under
     "sqp_calls", and the MPC solves (`cone_qp.solve` calls, each one K1
-    launch on the card) under "solves"."""
+    launch and one of the inverse's kernel on the card) under "solves"."""
     import inspect
 
     from quadruped_tpu_torch.control import wbc
@@ -113,18 +116,23 @@ def since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launches().items()}
 
 
-def expected(asked: dict, k1: int) -> dict:
+def expected(asked: dict, k1: int, inverses: int | None = None) -> dict:
     """The launches of a path that ran `k1` MPC solves and the QPs
-    `asked` (`count_qps`): K1 once a solve and no other MPC kernel, the
-    dense-QP kernel once a QP."""
-    return {"fused_admm": k1, "fused_full_solve": 0, "unrolled_dots": 0,
+    `asked` (`count_qps`): K1 once a solve, the Newton-Schulz inverse's
+    kernel `inverses` times (default: once a solve, each solve's cold
+    inverse) and no other MPC kernel, the dense-QP kernel once a QP."""
+    if inverses is None:
+        inverses = k1
+    return {"fused_admm": k1, "newton_schulz_inverse": inverses,
+            "fused_full_solve": 0, "unrolled_dots": 0,
             "dense_qp": asked["wbc_step"] + asked["solve_factored"]
             + asked["sqp_steps"]}
 
 
-def assert_launches(before: dict, asked: dict, k1: int) -> dict:
-    """The kernels launched since `before` are `expected(asked, k1)`;
-    returns them."""
+def assert_launches(before: dict, asked: dict, k1: int,
+                    inverses: int | None = None) -> dict:
+    """The kernels launched since `before` are `expected(asked, k1,
+    inverses)`; returns them."""
     got = since(before)
-    assert got == expected(asked, k1), (got, asked)
+    assert got == expected(asked, k1, inverses), (got, asked)
     return got

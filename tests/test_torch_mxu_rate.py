@@ -310,7 +310,7 @@ def test_measure_runs_the_kernel_on_card(cuda_device):
     got = {k: v - before[k] for k, v in launches().items()}
     assert got["unrolled_dots"] > 0
     assert got["fused_admm"] == got["fused_full_solve"] == got["dense_qp"] \
-        == 0
+        == got["newton_schulz_inverse"] == 0
 
 
 @pytest.mark.cuda
